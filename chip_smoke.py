@@ -5,26 +5,44 @@
 
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
-  2. build    nvcc builds csrc/bp_wmajor.cu into gr_ldpc_ece535a_torch/_build/
+  2. build    nvcc builds csrc/bp_wmajor.cu and csrc/bp_exact.cu, in parallel,
+              into gr_ldpc_ece535a_torch/_build/; prints ptxas's summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
-              rx: 131,072 codewords at Eb/N0 4 dB, 20 iterations, both
-              methods x both modes x both forms, plus edge cases
-  4. main     entry()'s forward (sum-product) and make_decoder(min-sum,
-              backend="auto") at 131,072 frames, 5 dB; the kernels' launch
-              counters must rise and the payload frame error shares must hold
+              rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
+              iterations, both methods x both modes x both forms, plus edge
+              cases; the exact kernels there (0 mismatching frames) and
+              against the f32 path of ops/decode.py; the large-code kernels
+              on gen_256_512 and gen_320_640; each sweep step's decoder on
+              the rx that step draws, at the shapes of the sweeps of phase 4
+              (sim_50_100 125,000 x 5, gen_256_512 131,072 x 20, early exit);
+              impl="split" against the tile
+  4. paths    each path driven with the launch counts set to 0 just before
+              it and read just after; each must launch its kernels:
+                forward   entry()'s forward (sum-product) and make_decoder(
+                          min-sum, backend="auto") at 131,072 frames, 5 dB
+                sweep     run_waterfall("sim_50_100"), the reference
+                          experiment at 10^6 frames a point, held within
+                          binomial bands of the committed JAX curve; and a
+                          gen_256_512 sweep on the large-code kernels
+                decode    cuda_decode_*(rx, code) with its default mode,
+                          "exact", on the forward's rx
   5. times    CUDA-event times of kernel and plain version, host-clock time of
-              the whole forward, CUDA-event times of its stages
+              the whole forward and of each sweep point
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 N_FRAMES = 131072
 ITERATIONS = 20
@@ -33,10 +51,24 @@ EE_MAX_MISMATCH = 0.001        # early exit: mismatched frame share
 FIXED_MIN_AGREE = 0.99         # fixed iterations: frame agreement
 FIXED_MAX_SUCC_GAP = 0.01      # fixed iterations: syndrome-success share gap
 FER_MAX = {"sumproduct": 0.03, "minsum": 0.005}   # payload frames, 5 dB
+EXACT_MIN_AGREE = 0.999        # exact kernel vs the f32 path: frame agreement
+LARGE_FRAMES = 16384
 TIMED_LAUNCHES = 20
-SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu"
-REPLACES = {"sumproduct": "gr_ldpc_ece535a_tpu/ops/pallas_bp.py:354",
-            "minsum": "gr_ldpc_ece535a_tpu/ops/pallas_bp.py:438"}
+SWEEP_REF = "results/waterfall_sim_50_100_4dec_1e6.json"
+SWEEP_FRAMES = 1_000_000
+SWEEP_GRID = np.arange(-7.0, 10.0 + 0.25, 0.5)   # run_waterfall's defaults
+SWEEP_ITERS = 5
+STEP_FRAMES = 1 << 17
+LARGE_PTS = (1.0, 1.5, 2.0)                        # the gen_256_512 sweep
+SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
+           "_large": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
+           "_exact": "gr_ldpc_ece535a_torch/csrc/bp_exact.cu"}
+_PALLAS = "gr_ldpc_ece535a_tpu/ops/pallas_bp.py"
+REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
+            "bp_sumproduct_large": f"{_PALLAS}:584",
+            "bp_minsum_large": f"{_PALLAS}:668",
+            "bp_sumproduct_exact": f"{_PALLAS}:260",
+            "bp_minsum_exact": f"{_PALLAS}:207"}
 
 
 def log(*args) -> None:
@@ -61,11 +93,15 @@ def main() -> int:
     from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code, make_ldpc
     from gr_ldpc_ece535a_torch.entry import EBN0_DB, entry
     from gr_ldpc_ece535a_torch.ops import (
-        awgn, bpsk_map, encode_bits, encode_to_symbols, make_decoder,
-        pack_bits, syndrome_ok)
+        awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
+        encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
     from gr_ldpc_ece535a_torch.ops import cuda_bp
     from gr_ldpc_ece535a_torch.ops._build import build, load_library
-    from gr_ldpc_ece535a_torch.ops.layout import edge_slots, wmajor_tables
+    from gr_ldpc_ece535a_torch.ops.layout import (
+        check_major_tables, edge_slots, wmajor_tables)
+    from gr_ldpc_ece535a_torch.parallel import make_sweep_step
+    from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
+    from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -79,27 +115,46 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    path, build_log = build()
-    lib = load_library()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s; ptxas:")
-    for line in build_log.splitlines():
-        kernel = re.search(r"bp_kernelILi(\d+)ELb(\d)E", line)
-        if kernel and "Compiling" in line:
-            log(f"    bp_kernel<WR={kernel[1]}, "
-                f"{'sumproduct' if kernel[2] == '1' else 'minsum'}>")
-        elif "Used" in line or "spill" in line:
-            log("       ", line.split(":", 1)[-1].strip())
-    for name in ("block_32_64", "sim_5_10", "sim_8_16", "sim_24_48",
-                 "sim_50_100"):
-        t = wmajor_tables(get_code(name))
-        got = lib.bp_smem_bytes(t.M, t.N, t.Wr, t.Wc)
-        if got != cuda_bp.smem_bytes(get_code(name)):
-            raise AssertionError(f"smem plan differs for {name}: {got}")
+    built = build()
+    log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.1f} s; ptxas:")
+    for _, build_log in built.values():      # one line per kernel
+        name, notes = None, []
+        for line in build_log.splitlines() + ["Compiling (end)"]:
+            kernel = re.search(
+                r"(bp_(?:exact_)?kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
+            if "Compiling" in line:
+                if name:
+                    log(f"    {name}: {'; '.join(notes)}")
+                name, notes = None, []
+                if kernel:
+                    tile = {None: "exact", "32": "tile", "16": "large"}[kernel[4]]
+                    name = (f"{kernel[1]}<WR={kernel[2]}, "
+                            f"{'sumproduct' if kernel[3] == '1' else 'minsum'}, "
+                            f"{tile}>")
+            elif name and ("Used" in line or "spill" in line):
+                notes.append(line.split(":", 1)[-1].strip())
+    wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
+    gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
+           for m, n in ((200, 400), (256, 512), (320, 640))}
+    for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
+                                    "sim_24_48", "sim_50_100")] + list(gen.values()):
+        t, x = wmajor_tables(c), check_major_tables(c)
+        got = (wlib.bp_smem_bytes(t.M, t.N, t.Wr, t.Wc),
+               wlib.bp_large_smem_bytes(t.M, t.N, t.Wr, t.Wc),
+               xlib.bp_exact_smem_bytes(x.M, x.N, x.Wr, x.Wc))
+        want = (cuda_bp.smem_bytes(c), cuda_bp.large_smem_bytes(c),
+                cuda_bp.exact_smem_bytes(c))
+        if got != want:
+            raise AssertionError(f"smem plan differs for {c.name}: {got} {want}")
 
     kernels = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                "minsum": cuda_bp.cuda_decode_minsum}
     plains = {"sumproduct": cuda_bp.decode_sumproduct_plain,
               "minsum": cuda_bp.decode_minsum_plain}
+    exact_plains = {"sumproduct": cuda_bp.decode_sumproduct_exact_plain,
+                    "minsum": cuda_bp.decode_minsum_exact_plain}
+    f32_paths = {"sumproduct": decode_sumproduct, "minsum": decode_minsum}
 
     def codewords(code, B, ebn0, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -107,9 +162,12 @@ def main() -> int:
                           dtype=torch.int8)
         return awgn(g, bpsk_map(encode_bits(d, code)), ebn0)
 
-    def compare(tag, vk, vp, code, early_exit):
+    def compare(tag, vk, vp, code, early_exit, identical=False,
+                min_agree=None):
         """Kernel vs plain: four-bin decomposition of the mismatched frames
-        (bench.py::_bench_parity), and the contract of the form."""
+        (bench.py::_bench_parity), and the contract of the form: identical
+        decisions, or the early-exit / fixed contracts of the precise kernels,
+        or (min_agree) an agreement share with no two valid codewords."""
         B = vk.shape[0]
         diff = (vk != vp).any(1)
         ok_k, ok_p = syndrome_ok(vk, code.H), syndrome_ok(vp, code.H)
@@ -121,7 +179,12 @@ def main() -> int:
              "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
              "succ_plain": float(ok_p.float().mean()) if B else 1.0}
         log(f"[kernels] {tag}: {json.dumps(c)}")
-        if early_exit:
+        if identical:
+            good = c["mismatch"] == 0
+        elif min_agree is not None:
+            good = (B - c["mismatch"] >= min_agree * B
+                    and c["both_valid_different"] == 0)
+        elif early_exit:
             good = (c["mismatch"] <= EE_MAX_MISMATCH * B
                     and c["both_valid_different"] == 0)
         else:
@@ -130,13 +193,19 @@ def main() -> int:
                     <= FIXED_MAX_SUCC_GAP)
         if not good:
             raise AssertionError(f"kernel disagrees with its plain version: {tag}")
+        return int((vk.int() - vp.int()).abs().max()) if B else 0
 
     def run_pair(method, rx, code, iters, early_exit, mode="precise", **kw):
         vk = kernels[method](rx, code, iters, mode=mode, early_exit=early_exit,
                              **kw)
-        vp = plains[method](rx, code, iters, early_exit, **kw)
+        if mode == "exact":
+            vp = exact_plains[method](rx, code, iters)
+        else:
+            vp = plains[method](rx, code, iters, early_exit, **kw)
         torch.cuda.synchronize()
         return vk, vp
+
+    max_err = dict.fromkeys(cuda_bp.KERNELS, 0)
 
     # -- 3. kernels vs plain versions ----------------------------------------
     code = get_code("block_32_64")
@@ -164,10 +233,10 @@ def main() -> int:
         other = get_code(name)
         edge.append((name, other, codewords(other, 16384, PARITY_EBN0_DB, 4),
                      ITERATIONS))
-    # a generated code at the top of the size gate (1 block per SM)
-    big = LdpcCode.from_h(make_ldpc(200, 400, seed=1), name="gen_200_400")
+    # a generated code at the top of the tile kernel's size gate
+    big = gen[400]
     if not cuda_bp.kernel_supported(big):
-        raise AssertionError("gen_200_400 should fit the kernels' size gate")
+        raise AssertionError("gen_200_400 should fit the tile kernels' size gate")
     edge.append((f"gen_200_400 E={edge_slots(big)} smem "
                  f"{cuda_bp.smem_bytes(big)} B", big,
                  codewords(big, 4096, PARITY_EBN0_DB, 5), ITERATIONS))
@@ -184,8 +253,103 @@ def main() -> int:
                 f"{'early_exit' if early_exit else 'fixed'}", vk, vp, code,
                 early_exit)
 
-    # -- 4. main path ---------------------------------------------------------
-    forward, (gen, _) = entry(device=dev)
+    # the exact kernels: their plain versions on every frame, and the f32
+    # path of ops/decode.py (whose torch scans may sum in another order)
+    for method in kernels:
+        name = f"bp_{method}_exact"
+        vk, vp = run_pair(method, rx4, code, ITERATIONS, False, mode="exact")
+        max_err[name] = compare(f"{method} exact {N_FRAMES}x{ITERATIONS} "
+                                f"@{PARITY_EBN0_DB}dB", vk, vp, code, False,
+                                identical=True)
+        vf = f32_paths[method](rx4, code, ITERATIONS, early_exit=False)
+        compare(f"{method} exact vs ops.decode f32 path {N_FRAMES}x"
+                f"{ITERATIONS}", vk, vf, code, False, min_agree=EXACT_MIN_AGREE)
+        del vp, vf
+    sat = 30.0 * bpsk_map(encode_bits(torch.randint(
+        0, 2, (64, code.K), generator=torch.Generator(device=dev).manual_seed(8),
+        device=dev, dtype=torch.int8), code))
+    exact_edge = [("batch 1", codewords(code, 1, PARITY_EBN0_DB, 1), ITERATIONS),
+                  ("batch 257", codewords(code, 257, PARITY_EBN0_DB, 2),
+                   ITERATIONS),
+                  ("all-zero rx", zero, 5), ("saturating rx (+-30)", sat, 5)]
+    exact_edge += [(f"iterations {it}", rxi, it) for it in (0, 1, 5)]
+    for tag, rx, iters in exact_edge:
+        for method in kernels:
+            vk, vp = run_pair(method, rx, code, iters, False, mode="exact")
+            compare(f"{method} exact {tag}", vk, vp, code, False,
+                    identical=True)
+
+    # the large-code kernels on codes beyond the tile
+    for c in (gen[512], gen[640]):
+        if cuda_bp.kernel_supported(c) or not cuda_bp.large_supported(c):
+            raise AssertionError(f"{c.name} should take the large-code kernel")
+        rxl = codewords(c, LARGE_FRAMES, 2.0, 6)
+        for method in kernels:
+            for early_exit in (False, True):
+                torch.cuda.reset_peak_memory_stats()
+                vk, vp = run_pair(method, rxl, c, ITERATIONS, early_exit)
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                err = compare(
+                    f"{method} large {'early_exit' if early_exit else 'fixed'}"
+                    f" {c.name} E={edge_slots(c)} smem "
+                    f"{cuda_bp.large_smem_bytes(c)} B {LARGE_FRAMES}x"
+                    f"{ITERATIONS} @2dB (plain peak {peak:.0f} MiB)", vk, vp,
+                    c, early_exit)
+                if c is gen[512] and not early_exit:
+                    max_err[f"bp_{method}_large"] = err
+    # each sweep step's decoder against the plain version on the rx the
+    # step draws, at the shapes run_waterfall gives it in phase 4: the
+    # reference experiment's 125,000 frames x 5 iterations (a partial last
+    # tile) at every point, the gen_256_512 sweep's 131,072 x 20 at each of
+    # its points; early exit, the first step of each point
+    n_steps = math.ceil(SWEEP_FRAMES / STEP_FRAMES)
+    sweep_shapes = [(get_code("sim_50_100"), math.ceil(SWEEP_FRAMES / n_steps),
+                     SWEEP_ITERS, SWEEP_GRID),
+                    (gen[512], N_FRAMES, ITERATIONS, LARGE_PTS)]
+    for c, fps, iters, pts in sweep_shapes:
+        for method in kernels:
+            step = make_sweep_step(c, dev, method=method, iterations=iters,
+                                   frames_per_device=fps)
+            peak = 0.0
+            for p, e in enumerate(pts):
+                u, rxs = draw_frames(c, fps, (0, p, 0), float(e), dev)
+                torch.cuda.reset_peak_memory_stats()
+                vk = step.decode(rxs)
+                vp = plains[method](rxs, c, iters, True)
+                torch.cuda.synchronize()
+                peak = max(peak, torch.cuda.max_memory_allocated() / 2**20)
+                tag = (f"{method} sweep step {c.name} {fps}x{iters} early_exit "
+                       f"@{e:+.1f}dB")
+                compare(tag, vk, vp, c, True)
+                if step((0, p, 0), float(e)) != count_errors(vk, u, c):
+                    raise AssertionError(f"the step decodes other frames: {tag}")
+            log(f"[kernels] {method} sweep steps {c.name} {fps}x{iters}: "
+                f"{len(pts)} points, peak device memory {peak:.0f} MiB")
+    # impl="split" on block_32_64 against the tile kernel (the same arithmetic)
+    for method in kernels:
+        for early_exit in (False, True):
+            vs = kernels[method](rx4, code, ITERATIONS, mode="precise",
+                                 early_exit=early_exit, impl="split")
+            vg = kernels[method](rx4, code, ITERATIONS, mode="precise",
+                                 early_exit=early_exit, impl="gram")
+            torch.cuda.synchronize()
+            compare(f"{method} impl=split vs impl=gram "
+                    f"{'early_exit' if early_exit else 'fixed'} {N_FRAMES}x"
+                    f"{ITERATIONS}", vs, vg, code, early_exit, identical=True)
+
+    # -- 4. paths -----------------------------------------------------------
+    def drive(path, fn, want):
+        cuda_bp.LAUNCHES.update(dict.fromkeys(cuda_bp.LAUNCHES, 0))
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(cuda_bp.LAUNCHES)
+        log(f"[{path}] launches during the path: {counts}")
+        for name in want:
+            if counts[name] < 1:
+                raise AssertionError(f"the {path} path did not launch {name}")
+        return out, counts
+
+    forward, (gen_fwd, _) = entry(device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
     data = torch.randint(0, 256, (N_FRAMES, code.K // 8), generator=g,
                          device=dev, dtype=torch.uint8)
@@ -193,35 +357,72 @@ def main() -> int:
                encode_to_symbols(data, code), EBN0_DB)
     decode_ms = make_decoder(code, 0, ITERATIONS, early_exit=False,
                              backend="auto")
-    for fn in kernels.values():
-        fn.launches = 0
-    out_sp = forward(gen, data)
-    out_ms = pack_bits(decode_ms(rx5)[:, code.M:])
-    torch.cuda.synchronize()
-    launches = {m: fn.launches for m, fn in kernels.items()}
-    log(f"[main] launches during the main path: {launches}")
+    (out_sp, out_ms), fwd_counts = drive(
+        "forward", lambda: (forward(gen_fwd, data),
+                            pack_bits(decode_ms(rx5)[:, code.M:])),
+        ("bp_sumproduct", "bp_minsum"))
     for method, out in (("sumproduct", out_sp), ("minsum", out_ms)):
         if out.shape != data.shape or out.dtype != torch.uint8:
             raise AssertionError(f"{method}: output {out.shape} {out.dtype}")
         fer = float((out != data).any(1).float().mean())
-        log(f"[main] {method}: payload frame error share {fer} over "
+        log(f"[forward] {method}: payload frame error share {fer} over "
             f"{N_FRAMES} frames at {EBN0_DB} dB (limit {FER_MAX[method]})")
-        if launches[method] < 1:
-            raise AssertionError(f"main path did not launch the {method} kernel")
         if not fer <= FER_MAX[method]:
             raise AssertionError(f"{method}: payload frame error share {fer}")
     # the kernel against the plain reference decoders of ops/decode.py
     ref = make_decoder(code, "sumproduct", ITERATIONS, early_exit=False,
                        backend="torch")
     compare("sumproduct kernel vs ops.decode reference, 4096 frames @5dB",
-            kernels["sumproduct"](rx5[:4096], code, ITERATIONS),
+            kernels["sumproduct"](rx5[:4096], code, ITERATIONS, mode="precise"),
             ref(rx5[:4096]), code, early_exit=False)
-    max_err = {}
     for method in kernels:
         vk, vp = run_pair(method, rx5, code, ITERATIONS, False)
-        max_err[method] = int((vk.int() - vp.int()).abs().max())
-        compare(f"{method} fixed, main-path rx {N_FRAMES} @{EBN0_DB}dB", vk, vp,
-                code, early_exit=False)
+        max_err[f"bp_{method}"] = compare(
+            f"{method} fixed, main-path rx {N_FRAMES} @{EBN0_DB}dB", vk, vp,
+            code, early_exit=False)
+
+    ref_curve = json.loads(open(SWEEP_REF).read())
+    big = gen[512]
+    large_pts = list(LARGE_PTS)
+
+    def sweeps():
+        res = run_waterfall("sim_50_100", SWEEP_GRID,
+                            frames_per_point=SWEEP_FRAMES,
+                            iterations=SWEEP_ITERS,
+                            frames_per_step=STEP_FRAMES, device=dev)
+        resl = run_waterfall(big, large_pts, frames_per_point=N_FRAMES,
+                             iterations=ITERATIONS,
+                             methods=("minsum", "sumproduct"), device=dev)
+        return res, resl
+
+    (res, resl), sweep_counts = drive(
+        "sweep", sweeps, ("bp_sumproduct", "bp_minsum", "bp_sumproduct_large",
+                          "bp_minsum_large"))
+    misses = band_check(res, ref_curve)
+    log(f"[sweep] sim_50_100: {len(res.ebn0_db)} points x "
+        f"{len(res.methods)} methods x {res.frames_per_point} frames, "
+        f"{len(misses)} outside the 5-sigma bands of {SWEEP_REF}")
+    for line in res.to_table().splitlines():
+        log(f"    {line}")
+    if misses or res.frames_per_point != ref_curve["frames_per_point"]:
+        raise AssertionError("sweep outside its band: " + "; ".join(misses))
+    for m in resl.methods:
+        log(f"[sweep] {big.name} {m}, {ITERATIONS} iterations, "
+            f"{resl.frames_per_point} frames: FER {resl.fer[m].tolist()} "
+            f"BER {resl.ber[m].tolist()} at {large_pts} dB")
+        if not (np.diff(resl.fer[m]) < 0).all():
+            raise AssertionError(f"{big.name} {m}: FER does not fall with SNR")
+
+    vx, dec_counts = drive(
+        "decode", lambda: {m: kernels[m](rx5, code) for m in kernels},
+        ("bp_sumproduct_exact", "bp_minsum_exact"))
+    for method, v in vx.items():
+        compare(f"{method} default (exact) vs ops.decode f32 path, main-path "
+                f"rx", v, f32_paths[method](rx5, code, ITERATIONS,
+                                            early_exit=False),
+                code, False, min_agree=EXACT_MIN_AGREE)
+    path_counts = {"": fwd_counts, "_large": sweep_counts,
+                   "_exact": dec_counts}
 
     # -- 5. times ---------------------------------------------------------------
     def cuda_ms(fn):
@@ -237,51 +438,114 @@ def main() -> int:
         stop.synchronize()
         return start.elapsed_time(stop) / TIMED_LAUNCHES
 
+    def pair_ms(tag, k, p, bits):
+        p1, k1, k2, p2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+        km, pm = (k1 + k2) / 2, (p1 + p2) / 2
+        log(f"[times] {tag}: kernel {k1:.4f} / {k2:.4f} ms "
+            f"({bits / (km / 1e3):.4e} info bit/s), plain "
+            f"{p1:.4f} / {p2:.4f} ms ({bits / (pm / 1e3):.4e} "
+            f"info bit/s) [{card}]")
+        return km, pm
+
     info_bits = N_FRAMES * code.K
     times = {}
+    shape = f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB"
     for method in kernels:
         for early_exit in (False, True):
-            k = lambda: kernels[method](rx4, code, ITERATIONS,
-                                        early_exit=early_exit)
-            p = lambda: plains[method](rx4, code, ITERATIONS, early_exit)
-            p1, k1, k2, p2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
-            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
             form = "early_exit" if early_exit else "fixed"
-            times[(method, early_exit)] = (km, pm)
-            log(f"[times] {method} {form} {N_FRAMES}x{ITERATIONS} "
-                f"@{PARITY_EBN0_DB}dB: kernel {k1:.4f} / {k2:.4f} ms "
-                f"({info_bits / (km / 1e3):.4e} info bit/s), plain "
-                f"{p1:.4f} / {p2:.4f} ms ({info_bits / (pm / 1e3):.4e} "
-                f"info bit/s) [{card}]")
+            t = pair_ms(
+                f"{method} {form} {shape}",
+                lambda: kernels[method](rx4, code, ITERATIONS, mode="precise",
+                                        early_exit=early_exit),
+                lambda: plains[method](rx4, code, ITERATIONS, early_exit),
+                info_bits)
+            if not early_exit:
+                times[f"bp_{method}"] = t
+        times[f"bp_{method}_exact"] = pair_ms(
+            f"{method} exact {shape}",
+            lambda: kernels[method](rx4, code, ITERATIONS),
+            lambda: exact_plains[method](rx4, code, ITERATIONS), info_bits)
+        rxl = codewords(big, LARGE_FRAMES, 2.0, 6)
+        times[f"bp_{method}_large"] = pair_ms(
+            f"{method} large fixed {big.name} {LARGE_FRAMES}x{ITERATIONS} @2dB",
+            lambda: kernels[method](rxl, big, ITERATIONS, mode="precise"),
+            lambda: plains[method](rxl, big, ITERATIONS, False),
+            LARGE_FRAMES * big.K)
+        for c, rxt in ((big, codewords(big, N_FRAMES, 2.0, 7)), (code, rx4)):
+            for impl in ("gram", "split"):
+                if impl == "gram" and not cuda_bp.kernel_supported(c):
+                    continue
+                ms = cuda_ms(lambda: kernels[method](
+                    rxt, c, ITERATIONS, mode="precise", impl=impl))
+                log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
+                    f"{ITERATIONS}: kernel {ms:.4f} ms "
+                    f"({N_FRAMES * c.K / (ms / 1e3):.4e} info bit/s) [{card}]")
     for _ in range(2):
-        forward(gen, data)
+        forward(gen_fwd, data)
     torch.cuda.synchronize()
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        forward(gen, data)
+        forward(gen_fwd, data)
     torch.cuda.synchronize()
     fwd = (time.perf_counter() - t0) / reps * 1e3
     log(f"[times] forward (encode, AWGN, sum-product x{ITERATIONS}, pack) "
         f"{N_FRAMES} frames: {fwd:.4f} ms host clock "
         f"({info_bits / (fwd / 1e3):.4e} info bit/s) [{card}]")
     tx5 = encode_to_symbols(data, code)
-    bits5 = kernels["sumproduct"](rx5, code, ITERATIONS)
+    bits5 = kernels["sumproduct"](rx5, code, ITERATIONS, mode="precise")
     stages = {"encode_to_symbols": lambda: encode_to_symbols(data, code),
-              "awgn": lambda: awgn(gen, tx5, EBN0_DB),
+              "awgn": lambda: awgn(gen_fwd, tx5, EBN0_DB),
               "decode (sum-product kernel)":
-                  lambda: kernels["sumproduct"](rx5, code, ITERATIONS),
+                  lambda: kernels["sumproduct"](rx5, code, ITERATIONS,
+                                                mode="precise"),
               "pack_bits": lambda: pack_bits(bits5[:, code.M:])}
     for name, fn in stages.items():
         log(f"[times] forward stage {name}, {N_FRAMES} frames: "
             f"{cuda_ms(fn):.4f} ms [{card}]")
+    # one step of the reference experiment (125,000 frames, 3 dB), by stage
+    sim = get_code("sim_50_100")
+    fps = SWEEP_FRAMES // 8
+    key = (0, 20, 0)
+    u, rxs = draw_frames(sim, fps, key, 3.0, dev)
+    parts = {"draw_frames": lambda: draw_frames(sim, fps, key, 3.0, dev),
+             "count_errors (one fetch)": lambda: count_errors(u, u, sim)}
+    for m in res.methods:
+        dec = (functools.partial(kernels[m], code=sim, iterations=5,
+                                 mode="precise", early_exit=True)
+               if m in kernels else make_decoder(sim, m, 5, backend="torch"))
+        parts[f"decode {m}"] = functools.partial(dec, rxs)
+    for name, fn in parts.items():
+        log(f"[times] sweep step stage {name}, sim_50_100 {fps} frames: "
+            f"{cuda_ms(fn):.4f} ms [{card}]")
+    for m in res.methods:
+        step = make_sweep_step(sim, dev, method=m, iterations=5,
+                               frames_per_device=fps)
+        step(key, 3.0)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(key, 3.0)
+        log(f"[times] sweep step {m}, sim_50_100 {fps} frames: "
+            f"{(time.perf_counter() - t0) / reps * 1e3:.4f} ms host clock "
+            f"[{card}]")
+    for r in (res, resl):
+        per_point = len(r.methods) * r.frames_per_point
+        log(f"[times] sweep {r.code_name}: {r.wall_s:.4f} s host clock for "
+            f"{len(r.ebn0_db)} points x {len(r.methods)} methods; per point "
+            f"(s, frames/s): " + ", ".join(
+                f"{e:+.1f} dB {s:.4f} {per_point / s:.4e}"
+                for e, s in zip(r.ebn0_db, r.point_wall_s)) + f" [{card}]")
+
+    def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""
+        return name[name.index("_", 3):] if name.count("_") == 2 else ""
 
     record = {"kernels": [
-        {"name": f"bp_{method}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[method], "launches": launches[method],
-         "max_abs_err": max_err[method],
-         "ms": times[(method, False)][0], "plain_ms": times[(method, False)][1]}
-        for method in kernels]}
+        {"name": name, "route": "cuda",
+         "source": SOURCES[route_of(name)], "replaces": REPLACES[name],
+         "launches": path_counts[route_of(name)][name],
+         "max_abs_err": max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name in cuda_bp.KERNELS]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,9 @@ against; the code registry is shared with it, not copied
 Layout:
   ops/       bits, encode, channel, plain decoders, CUDA BP kernel wrappers
   csrc/      hand-written CUDA kernels, built with nvcc at first use
+  parallel/  the Monte-Carlo sweep step
+  sim/       BER/FER waterfalls (the reference's ldpc_lapack experiment)
+  apps/      command-line apps, run with python -m
   entry.py   the flagship forward step (encode -> AWGN -> 20-iteration BP -> pack)
 """
 

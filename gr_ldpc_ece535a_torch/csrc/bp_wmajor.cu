@@ -1,8 +1,10 @@
 // Belief-propagation decoders for Hopper (sm_90a) over the w-major edge layout.
 //
 // Replaces, in gr_ldpc_ece535a_tpu/ops/pallas_bp.py:
-//   bp_kernel<WR, true>   <- _sumproduct_fast_kernel (tanh-rule SPA, phi domain)
-//   bp_kernel<WR, false>  <- _minsum_fast_kernel     (min-sum, sign(0) zeroes the row)
+//   bp_kernel<WR, true, 32, 8>    <- _sumproduct_fast_kernel  (tanh-rule SPA, phi domain)
+//   bp_kernel<WR, false, 32, 8>   <- _minsum_fast_kernel      (min-sum, sign(0) zeroes the row)
+//   bp_kernel<WR, true, 16, 32>   <- _sumproduct_split_kernel (the same SPA, large codes)
+//   bp_kernel<WR, false, 16, 32>  <- _minsum_split_kernel     (the same min-sum, large codes)
 // each in its fixed-iteration and early-exit form. The plain PyTorch versions
 // of the same functions are in ops/cuda_bp.py and round in the same order.
 //
@@ -11,16 +13,28 @@
 // hi/lo "precise" split). Here every aggregation is a 1-3 term f32 sum read
 // through index tables, so "precise" and "fast" are the same arithmetic.
 //
-// Work layout. A block decodes kFrames = 32 frames (one per lane, x) with
-// kRows = 8 warps (y) sharing the checks and variables of those frames. The
-// block's whole BP state stays in shared memory for all iterations, laid out
-// [slot][frame] so that the 32 lanes of a warp touch 32 banks:
-//   msg  E x 32 f32    edge messages, rewritten in place by both half-steps
-//   r    N x 33 f32    -rx, padded stride (transposing loads stay conflict-free)
-//   vh   N x 33 int8   hard decisions
-// plus the slot tables and per-frame flags: 36.9 KB for block_32_64
-// (E = 192, N = 64), 56 KB for sim_50_100. rx is read once, coalesced, and
+// Work layout. A block decodes F frames (one per lane, x) with R rows of
+// threads (y) sharing the checks and variables of those frames. The block's
+// whole BP state stays in shared memory for all iterations, laid out
+// [slot][frame] so that the lanes of a warp touch distinct banks:
+//   msg  E x F f32       edge messages, rewritten in place by both half-steps
+//   r    N x (F+1) f32   -rx, padded stride (transposing loads stay conflict-free)
+//   vh   N x (F+1) int8  hard decisions
+// plus the slot tables and per-frame flags. rx is read once, coalesced, and
 // only the int8 decisions are written back.
+//
+// Two tiles. The tile kernel (F = 32, R = 8) takes 36.9 KB for block_32_64
+// (E = 192, N = 64) and 56 KB for sim_50_100. The large-code kernel
+// (F = 16, R = 32) halves the frames so that codes up to E ~ 2000 fit one
+// block's 227 KB: 154 KB for gen_256_512 (E = 1536), 192 KB for gen_320_640
+// (E = 1920). It runs one 512-thread block per SM. A warp is 16 frames x 2
+// rows: in the check step its two rows take neighbouring checks, so
+// msg[e*16 + f] hits 32 distinct banks; in the variable step the two rows'
+// slots are unrelated and collide in one bank pair when their slot indices
+// have equal parity (a 2-way conflict on about half the reads). The TPU's
+// split form bcm^T (bcm x) - x existed only because the (E, E) Gram did not
+// fit VMEM; the gather form here has no Gram, so the large kernel is the
+// same arithmetic as the tile kernel, in a smaller tile.
 //
 // What bounds it. Per real edge and iteration the sum-product does two
 // logf(tanhf(.)) pairs (not fast-math intrinsics: the precise contract needs
@@ -46,10 +60,8 @@
 
 namespace {
 
-constexpr int kFrames = 32;              // frames per block, threadIdx.x
-constexpr int kRows = 8;                 // threadIdx.y
-constexpr int kThreads = kFrames * kRows;
-constexpr int kRStride = kFrames + 1;    // row stride of r and vh
+constexpr int kTileFrames = 32, kTileRows = 8;     // tile kernel
+constexpr int kLargeFrames = 16, kLargeRows = 32;  // large-code kernel
 constexpr int kWcMax = 4;                // largest column weight taken
 constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
 constexpr float kPhiClamp = 1e4f;        // pallas_bp._PHI_CLAMP
@@ -81,7 +93,7 @@ struct Add { __device__ float operator()(float a, float b) const { return a + b;
 //   w = max(log tanh(|t|/2), -1e4), U = tree sum of w over the row,
 //   E = (-(row sign product) * own sign) * log tanh((w - U)/2).
 // Pad slots act as t = +1e30: w = 0, sign +1, so they are skipped.
-template <int WR>
+template <int WR, int F>
 __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
                                                  int m, int M, int f) {
   float w[WR], u[WR], sg[WR];
@@ -92,7 +104,7 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
     w[k] = 0.f;
     sg[k] = 1.f;
     if (sv[e] >= 0) {
-      const float t = msg[e * kFrames + f];
+      const float t = msg[e * F + f];
       sg[k] = t < 0.f ? -1.f : 1.f;
       const float x = logf(tanhf(fabsf(t) * 0.5f));
       w[k] = x < -kPhiClamp ? -kPhiClamp : x;   // keeps NaN, as jnp.maximum
@@ -108,7 +120,7 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
     const int e = k * M + m;
     if (sv[e] >= 0) {
       const float v = w[k] - U;
-      msg[e * kFrames + f] = (negP * sg[k]) * logf(tanhf(v * 0.5f));
+      msg[e * F + f] = (negP * sg[k]) * logf(tanhf(v * 0.5f));
     }
   }
 }
@@ -117,7 +129,7 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
 //   Lr = sign * (prod_alpha * min over the other slots of |Lq|), where
 //   prod_alpha is the row sign product, or 0 when the row holds a zero.
 // Pad slots act as t = +1e30 (never the minimum of a real row).
-template <int WR>
+template <int WR, int F>
 __device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
                                              int M, int f, float norm_offset,
                                              float norm_scale, int use_offset,
@@ -127,7 +139,7 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
 #pragma unroll
   for (int k = 0; k < WR; ++k) {
     const int e = k * M + m;
-    const float t = sv[e] >= 0 ? msg[e * kFrames + f] : kPadBig;
+    const float t = sv[e] >= 0 ? msg[e * F + f] : kPadBig;
     beta[k] = fabsf(t);
     sg[k] = t < 0.f ? -1.f : 1.f;
     P = P * sg[k];
@@ -152,7 +164,7 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
     }
     if (use_scale) me = me * norm_scale;
     const int e = k * M + m;
-    if (sv[e] >= 0) msg[e * kFrames + f] = sg[k] * (prod_alpha * me);
+    if (sv[e] >= 0) msg[e * F + f] = sg[k] * (prod_alpha * me);
   }
 }
 
@@ -160,19 +172,19 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
 // edges. Writes the tentative decision (SPA: tot + deg*r <= 0; min-sum:
 // r + tot < 0) and/or the next edge messages base + (sum over the other
 // edges), base = (deg - 1)*r for the SPA and r for min-sum.
-template <bool SP>
+template <bool SP, int F>
 __device__ __forceinline__ void var_step(float* msg, const float* r,
                                          const int* vs, int8_t* vh, int j,
                                          int Wc, int f, bool write_msgs,
                                          bool write_vh) {
-  const float rj = r[j * kRStride + f];
+  const float rj = r[j * (F + 1) + f];
   float e[kWcMax];
   int s[kWcMax];
   int d = 0;
 #pragma unroll
   for (int k = 0; k < kWcMax; ++k) {
     s[k] = k < Wc ? vs[j * Wc + k] : -1;
-    e[k] = s[k] >= 0 ? msg[s[k] * kFrames + f] : 0.f;
+    e[k] = s[k] >= 0 ? msg[s[k] * F + f] : 0.f;
     d += s[k] >= 0;
   }
   if (write_vh) {
@@ -180,7 +192,7 @@ __device__ __forceinline__ void var_step(float* msg, const float* r,
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k)
       if (k < Wc) tot = tot + e[k];
-    vh[j * kRStride + f] =
+    vh[j * (F + 1) + f] =
         SP ? (tot + (float)d * rj <= 0.f) : (rj + tot < 0.f);
   }
   if (write_msgs) {
@@ -192,40 +204,45 @@ __device__ __forceinline__ void var_step(float* msg, const float* r,
 #pragma unroll
       for (int i = 0; i < kWcMax; ++i)
         if (i != k && i < Wc) acc = acc + e[i];
-      msg[s[k] * kFrames + f] = base + acc;
+      msg[s[k] * F + f] = base + acc;
     }
   }
 }
 
+template <int F>
 __host__ __device__ inline int smem_bytes(int M, int N, int Wr, int Wc) {
   const int E = Wr * M;
-  return 4 * (E * kFrames + N * kRStride + E + N * Wc + 2 * kFrames) +
-         N * kRStride;
+  return 4 * (E * F + N * (F + 1) + E + N * Wc + 2 * F) + N * (F + 1);
 }
 
-template <int WR, bool SP>
-__global__ void __launch_bounds__(kThreads)
+// The large-code block fills an SM's shared memory, so it runs one block per
+// SM; saying so (min blocks 1) lets ptxas use the registers that frees and
+// removes the min-sum WR=5 spill. The tile kernel keeps ptxas's default.
+template <int WR, bool SP, int F, int R>
+__global__ void __launch_bounds__(F * R, F == kLargeFrames ? 1 : 0)
 bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
           const int* __restrict__ slot_var, const int* __restrict__ var_slots,
           int M, int N, int Wc, int iterations, int early_exit,
           float norm_offset, float norm_scale, int use_offset, int use_scale) {
+  constexpr int kThreads = F * R;
+  constexpr int kRStride = F + 1;         // row stride of r and vh
   extern __shared__ __align__(16) unsigned char smem[];
   const int E = WR * M;
   float* msg = reinterpret_cast<float*>(smem);
-  float* r = msg + E * kFrames;
+  float* r = msg + E * F;
   int* sv = reinterpret_cast<int*>(r + N * kRStride);
   int* vs = sv + E;
   int* done = vs + N * Wc;
-  int* unsat = done + kFrames;
-  int8_t* vh = reinterpret_cast<int8_t*>(unsat + kFrames);
+  int* unsat = done + F;
+  int8_t* vh = reinterpret_cast<int8_t*>(unsat + F);
 
   const int f = threadIdx.x, y = threadIdx.y;
-  const int tid = y * kFrames + f;
-  const long long f0 = (long long)blockIdx.x * kFrames;
+  const int tid = y * F + f;
+  const long long f0 = (long long)blockIdx.x * F;
 
   for (int i = tid; i < E; i += kThreads) sv[i] = slot_var[i];
   for (int i = tid; i < N * Wc; i += kThreads) vs[i] = var_slots[i];
-  for (int i = tid; i < kFrames * N; i += kThreads) {   // coalesced rx rows
+  for (int i = tid; i < F * N; i += kThreads) {   // coalesced rx rows
     const int ff = i / N, j = i - ff * N;
     const long long g = f0 + ff;
     r[j * kRStride + ff] = g < B ? -rx[g * N + j] : 0.f;
@@ -233,11 +250,11 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   // frames past B count as done from the start (pallas_bp._pad_done)
   if (y == 0) done[f] = f0 + f >= B;
   __syncthreads();
-  for (int e = y; e < E; e += kRows) {
+  for (int e = y; e < E; e += R) {
     const int j = sv[e];
-    if (j >= 0) msg[e * kFrames + f] = r[j * kRStride + f];
+    if (j >= 0) msg[e * F + f] = r[j * kRStride + f];
   }
-  for (int j = y; j < N; j += kRows) {   // decision of L = r (iterations = 0)
+  for (int j = y; j < N; j += R) {   // decision of L = r (iterations = 0)
     const float rj = r[j * kRStride + f];
     vh[j * kRStride + f] = SP ? rj <= 0.f : rj < 0.f;
   }
@@ -245,10 +262,10 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
 
   auto check = [&](int m) {
     if constexpr (SP)
-      check_sumproduct<WR>(msg, sv, m, M, f);
+      check_sumproduct<WR, F>(msg, sv, m, M, f);
     else
-      check_minsum<WR>(msg, sv, m, M, f, norm_offset, norm_scale, use_offset,
-                       use_scale);
+      check_minsum<WR, F>(msg, sv, m, M, f, norm_offset, norm_scale,
+                          use_offset, use_scale);
   };
 
   if (!early_exit) {
@@ -256,24 +273,26 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     const bool live = !done[f];
     for (int it = 0; it + 1 < iterations; ++it) {
       if (live)
-        for (int m = y; m < M; m += kRows) check(m);
+        for (int m = y; m < M; m += R)
+          check(m);
       __syncthreads();
       if (live)
-        for (int j = y; j < N; j += kRows)
-          var_step<SP>(msg, r, vs, vh, j, Wc, f, true, false);
+        for (int j = y; j < N; j += R)
+          var_step<SP, F>(msg, r, vs, vh, j, Wc, f, true, false);
       __syncthreads();
     }
     if (live) {
       if (iterations > 0) {
-        for (int m = y; m < M; m += kRows) check(m);
+        for (int m = y; m < M; m += R)
+          check(m);
       } else {
-        for (int e = y; e < E; e += kRows) msg[e * kFrames + f] = 0.f;
+        for (int e = y; e < E; e += R) msg[e * F + f] = 0.f;
       }
     }
     __syncthreads();
     if (live)
-      for (int j = y; j < N; j += kRows)
-        var_step<SP>(msg, r, vs, vh, j, Wc, f, false, true);
+      for (int j = y; j < N; j += R)
+        var_step<SP, F>(msg, r, vs, vh, j, Wc, f, false, true);
   } else {
     // each iteration: check step, tentative decision, syndrome over all M
     // checks; a frame that satisfies H keeps that decision and stops. The
@@ -283,14 +302,15 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
       const bool live = !done[f];
       if (y == 0) unsat[f] = 0;
       if (live)
-        for (int m = y; m < M; m += kRows) check(m);
+        for (int m = y; m < M; m += R)
+          check(m);
       __syncthreads();
       if (live)
-        for (int j = y; j < N; j += kRows)
-          var_step<SP>(msg, r, vs, vh, j, Wc, f, true, true);
+        for (int j = y; j < N; j += R)
+          var_step<SP, F>(msg, r, vs, vh, j, Wc, f, true, true);
       __syncthreads();
       if (live) {
-        for (int m = y; m < M; m += kRows) {
+        for (int m = y; m < M; m += R) {
           int par = 0;
 #pragma unroll
           for (int k = 0; k < WR; ++k) {
@@ -305,33 +325,34 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     }
   }
   __syncthreads();
-  for (int i = tid; i < kFrames * N; i += kThreads) {   // coalesced out rows
+  for (int i = tid; i < F * N; i += kThreads) {   // coalesced out rows
     const int ff = i / N, j = i - ff * N;
     const long long g = f0 + ff;
     if (g < B) out[g * N + j] = vh[j * kRStride + ff];
   }
 }
 
-template <int WR, bool SP>
+template <int WR, bool SP, int F, int R>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
                    const int* var_slots, int M, int N, int Wc, int iterations,
                    int early_exit, float norm_offset, float norm_scale,
                    int use_offset, int use_scale, cudaStream_t stream) {
-  const int smem = smem_bytes(M, N, WR, Wc);
+  const int smem = smem_bytes<F>(M, N, WR, Wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bp_kernel<WR, SP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bp_kernel<WR, SP, F, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((unsigned)((B + kFrames - 1) / kFrames));
-  const dim3 block(kFrames, kRows);
-  bp_kernel<WR, SP><<<grid, block, smem, stream>>>(
+  const dim3 grid((unsigned)((B + F - 1) / F));
+  const dim3 block(F, R);
+  bp_kernel<WR, SP, F, R><<<grid, block, smem, stream>>>(
       rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
       norm_offset, norm_scale, use_offset, use_scale);
   return cudaGetLastError();
 }
 
-template <bool SP>
+template <bool SP, int F, int R>
 cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
                      const int* slot_var, const int* var_slots, int M, int N,
                      int Wc, int iterations, int early_exit, float norm_offset,
@@ -339,9 +360,9 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
                      cudaStream_t stream) {
 #define BP_CASE(W)                                                            \
   case W:                                                                     \
-    return launch<W, SP>(rx, out, B, slot_var, var_slots, M, N, Wc,           \
-                         iterations, early_exit, norm_offset, norm_scale,     \
-                         use_offset, use_scale, stream);
+    return launch<W, SP, F, R>(rx, out, B, slot_var, var_slots, M, N, Wc,     \
+                               iterations, early_exit, norm_offset,           \
+                               norm_scale, use_offset, use_scale, stream);
   switch (Wr) {
     BP_CASE(2) BP_CASE(3) BP_CASE(4) BP_CASE(5) BP_CASE(6) BP_CASE(7)
     BP_CASE(8)
@@ -351,34 +372,59 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
 #undef BP_CASE
 }
 
+template <int F, int R>
+int decode(int sumproduct, const float* rx, int8_t* out, int B,
+           const int* slot_var, const int* var_slots, int M, int N, int Wr,
+           int Wc, int iterations, int early_exit, float norm_offset,
+           float norm_scale, int use_offset, int use_scale, void* stream) {
+  if (B <= 0 || iterations < 0 || Wc < 1 || Wc > kWcMax || Wr < kWrMin ||
+      Wr > kWrMax)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return sumproduct
+             ? dispatch<true, F, R>(Wr, rx, out, B, slot_var, var_slots, M, N,
+                                    Wc, iterations, early_exit, norm_offset,
+                                    norm_scale, use_offset, use_scale, s)
+             : dispatch<false, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
+                                     N, Wc, iterations, early_exit,
+                                     norm_offset, norm_scale, use_offset,
+                                     use_scale, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs for this code shape, in bytes.
+// Shared memory one block of the tile (bp_smem_bytes) or large-code
+// (bp_large_smem_bytes) kernel needs for this code shape, in bytes.
 int bp_smem_bytes(int M, int N, int Wr, int Wc) {
-  return smem_bytes(M, N, Wr, Wc);
+  return smem_bytes<kTileFrames>(M, N, Wr, Wc);
+}
+int bp_large_smem_bytes(int M, int N, int Wr, int Wc) {
+  return smem_bytes<kLargeFrames>(M, N, Wr, Wc);
 }
 
 // Launch the min-sum (sumproduct = 0) or sum-product (1) decoder on
-// `stream`. rx (B, N) f32 and out (B, N) int8 are row-major device buffers;
+// `stream`, with the tile (bp_decode) or large-code (bp_decode_large)
+// kernel. rx (B, N) f32 and out (B, N) int8 are row-major device buffers;
 // slot_var (E,) and var_slots (N, Wc) are the int32 w-major tables of
 // ops/layout.py. Returns the launch's cudaError_t; does not synchronise.
 int bp_decode(int sumproduct, const float* rx, int8_t* out, int B,
               const int* slot_var, const int* var_slots, int M, int N, int Wr,
               int Wc, int iterations, int early_exit, float norm_offset,
               float norm_scale, int use_offset, int use_scale, void* stream) {
-  if (B <= 0 || iterations < 0 || Wc < 1 || Wc > kWcMax || Wr < kWrMin ||
-      Wr > kWrMax)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return sumproduct
-             ? dispatch<true>(Wr, rx, out, B, slot_var, var_slots, M, N, Wc,
-                              iterations, early_exit, norm_offset, norm_scale,
-                              use_offset, use_scale, s)
-             : dispatch<false>(Wr, rx, out, B, slot_var, var_slots, M, N, Wc,
-                               iterations, early_exit, norm_offset, norm_scale,
-                               use_offset, use_scale, s);
+  return decode<kTileFrames, kTileRows>(
+      sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
+      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
+}
+int bp_decode_large(int sumproduct, const float* rx, int8_t* out, int B,
+                    const int* slot_var, const int* var_slots, int M, int N,
+                    int Wr, int Wc, int iterations, int early_exit,
+                    float norm_offset, float norm_scale, int use_offset,
+                    int use_scale, void* stream) {
+  return decode<kLargeFrames, kLargeRows>(
+      sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
+      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
 }
 
 const char* bp_error_string(int err) {

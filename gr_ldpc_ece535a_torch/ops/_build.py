@@ -1,9 +1,10 @@
-"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+"""Build and load the port's CUDA kernels: nvcc -> shared libraries -> ctypes.
 
-The sources under ``csrc/`` have a plain ``extern "C"`` interface and no
-PyTorch headers, so one nvcc call builds them in seconds. The library goes
-into the package's ``_build/`` directory (git-ignored), named by a hash of
-the sources and flags, and is built at first use only.
+Each source under ``csrc/`` has a plain ``extern "C"`` interface and no
+PyTorch headers, so nvcc builds it in seconds; the sources build in
+parallel, one nvcc process each, into one library each. A library goes into
+the package's ``_build/`` directory (git-ignored), named by a hash of its
+source and the flags, and is built at first use only.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "bp_wmajor.cu",)
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("bp_wmajor", "bp_exact")}
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as it does in the plain PyTorch versions. No --use_fast_math: the
-# approximate logf/tanhf differ exactly where log(tanh(x/2)) nears 0.
+# approximate logf/tanhf differ exactly where log(tanh(x/2)) nears 0, and
+# division stays IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -39,49 +41,78 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> tuple[Path, str]:
-    """Compile SOURCES unless this content was built before.
-
-    Returns (library path, compiler log); the log holds ptxas's register,
-    shared-memory and spill summary of every kernel.
-    """
+def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    lib = BUILD_DIR / f"libbp_wmajor-{h.hexdigest()[:16]}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return lib, log.read_text() if log.exists() else ""
+    h.update(SOURCES[name].read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile every source whose content was not built before, all at once.
+
+    Returns {name: (library path, compiler log)}; a log holds ptxas's
+    register, shared-memory and spill summary of every kernel.
+    """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    text = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{text}")
-    log.write_text(text)
-    os.replace(tmp, lib)
-    return lib, text
+    jobs = {}
+    for name, src in SOURCES.items():
+        lib = _lib_path(name)
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            jobs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in jobs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+            continue
+        lib = _lib_path(name)
+        lib.with_suffix(".log").write_text(text)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    out = {}
+    for name in SOURCES:
+        lib = _lib_path(name)
+        log = lib.with_suffix(".log")
+        out[name] = (lib, log.read_text() if log.exists() else "")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, its functions typed."""
+    lib = ctypes.CDLL(str(build()[name][0]))
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    lib.bp_decode.argtypes = [
-        i,              # sumproduct (1) or min-sum (0)
-        p, p, i,        # rx (B, N) f32, out (B, N) int8, B
-        p, p,           # slot_var (E,), var_slots (N, Wc) int32
-        i, i, i, i,     # M, N, Wr, Wc
-        i, i,           # iterations, early_exit
-        f, f, i, i,     # norm_offset, norm_scale, use_offset, use_scale
-        p,              # cudaStream_t
-    ]
-    lib.bp_decode.restype = i
-    lib.bp_smem_bytes.argtypes = [i, i, i, i]
-    lib.bp_smem_bytes.restype = i
-    lib.bp_error_string.argtypes = [i]
-    lib.bp_error_string.restype = ctypes.c_char_p
+    if name == "bp_wmajor":
+        decode_args = [
+            i,              # sumproduct (1) or min-sum (0)
+            p, p, i,        # rx (B, N) f32, out (B, N) int8, B
+            p, p,           # slot_var (E,), var_slots (N, Wc) int32
+            i, i, i, i,     # M, N, Wr, Wc
+            i, i,           # iterations, early_exit
+            f, f, i, i,     # norm_offset, norm_scale, use_offset, use_scale
+            p,              # cudaStream_t
+        ]
+        fns = {"bp_decode": decode_args, "bp_decode_large": decode_args,
+               "bp_smem_bytes": [i] * 4, "bp_large_smem_bytes": [i] * 4,
+               "bp_error_string": [i]}
+    else:
+        fns = {"bp_exact_decode": [
+                   i,           # sumproduct (1) or min-sum (0)
+                   p, p, i,     # rx (B, N) f32, out (B, N) int8, B
+                   p, p,        # chk_var (M*Wr,), var_cslots (N, Wc) int32
+                   i, i, i, i,  # M, N, Wr, Wc
+                   i,           # iterations
+                   p],          # cudaStream_t
+               "bp_exact_smem_bytes": [i] * 4,
+               "bp_exact_error_string": [i]}
+    for fn, args in fns.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = (ctypes.c_char_p if fn.endswith("string")
+                                    else i)
     return lib

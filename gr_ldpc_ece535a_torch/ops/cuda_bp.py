@@ -1,11 +1,26 @@
 """Hand-written CUDA belief-propagation kernels and their plain versions.
 
 The counterpart of ``gr_ldpc_ece535a_tpu/ops/pallas_bp.py``'s
-``pallas_decode_minsum`` / ``pallas_decode_sumproduct`` in modes "precise"
-and "fast". The kernels are in ``csrc/bp_wmajor.cu`` (built by
-``ops/_build.py``); this module holds their wrappers, their size gate and,
-beside each, a plain PyTorch version of the same function over the same
-w-major layout (slot e = w*M + m), with the same rounding order:
+``pallas_decode_minsum`` / ``pallas_decode_sumproduct``, with the same
+``mode`` and ``impl`` arguments and the same errors. Three kernels for each
+method, built by ``ops/_build.py``:
+
+  mode "exact"             csrc/bp_exact.cu   check-major, the f32 path's
+                                              decisions (fixed iterations)
+  "precise"/"fast", tile   csrc/bp_wmajor.cu  w-major, 32 frames a block
+  "precise"/"fast", large  csrc/bp_wmajor.cu  the same decoder, 16 frames a
+                                              block, for codes up to E ~ 2000
+
+``impl`` picks among the last two as JAX picks between its Gram and split
+kernels: "gram" is the tile kernel, "split" the large-code kernel, "auto"
+the tile kernel when the code's 32-frame tile fits a block's shared memory
+and the large-code kernel otherwise. The TPU's split form bcm^T (bcm x) - x
+was a workaround for an (E, E) Gram that did not fit VMEM; here both
+kernels gather, so the two impls are one function and share one plain
+version.
+
+Beside each kernel is a plain PyTorch version of the same function in the
+same layout and rounding order. The w-major decoders (slot e = w*M + m):
 
   sum-product  r = -rx; messages start at r[var].
                check step: w = max(log tanh(|t|/2), -1e4), U = pairwise-tree
@@ -22,12 +37,14 @@ w-major layout (slot e = w*M + m), with the same rounding order:
 
 Fixed form: iterations-1 full steps, a trailing check step and the decision.
 Early-exit form: the decision and the syndrome every iteration; a frame that
-satisfies H keeps that decision and its messages from then on.
+satisfies H keeps that decision and its messages from then on. The exact
+decoders are described in csrc/bp_exact.cu.
 
-On the TPU the two modes differ in how the aggregation matmul uses the bf16
-MXU; here the aggregation is a 1-3 term f32 sum, so "precise" and "fast" run
-the same arithmetic. The wrappers run the kernel on a CUDA tensor and the
-plain version on a CPU tensor; there is no fallback between the two.
+On the TPU "precise" and "fast" differ in how the aggregation matmul uses
+the bf16 MXU; here the aggregation is a 1-3 term f32 sum, so they run the
+same arithmetic. The wrappers run a kernel on a CUDA tensor and its plain
+version on a CPU tensor; there is no fallback between the two. Each launch
+adds one to ``LAUNCHES[kernel name]``.
 """
 
 from __future__ import annotations
@@ -41,55 +58,122 @@ import torch
 
 from gr_ldpc_ece535a_tpu.codes import LdpcCode
 
-from .layout import PAD_BIG, edge_slots, wmajor_tables
+from .layout import PAD_BIG, check_major_tables, edge_slots, wmajor_tables
 
 __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
            "decode_minsum_plain", "decode_sumproduct_plain",
-           "kernel_supported", "smem_bytes", "FRAMES_PER_BLOCK"]
+           "decode_minsum_exact_plain", "decode_sumproduct_exact_plain",
+           "kernel_supported", "large_supported", "exact_supported",
+           "supported", "smem_bytes", "large_smem_bytes", "exact_smem_bytes",
+           "route", "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK"]
 
-FRAMES_PER_BLOCK = 32          # kFrames in csrc/bp_wmajor.cu
-WR_RANGE = (2, 8)              # row weights the kernel is instantiated for
+FRAMES_PER_BLOCK = 32          # frames of a tile or exact block
+LARGE_FRAMES_PER_BLOCK = 16    # frames of a large-code block
+WR_RANGE = (2, 8)              # row weights the kernels are instantiated for
 WC_MAX = 4                     # kWcMax
 SMEM_MAX = 232448              # H100: 227 KB of dynamic shared memory a block
 _PHI_CLAMP = 1e4
-_MODES = ("precise", "fast")
+_MODES = ("exact", "precise", "fast")
+_IMPLS = ("auto", "gram", "split")
+
+# kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+KERNELS = tuple(f"bp_{m}{k}" for k in ("", "_large", "_exact")
+                for m in ("sumproduct", "minsum"))
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+_ROUTE_SUFFIX = {"tile": "", "large": "_large", "exact": "_exact"}
+
+
+def tile_bytes(E: int, N: int, Wc: int, frames: int, flags: bool = True) -> int:
+    """Shared memory of a block holding ``frames`` frames of a code with E
+    slots, N variables and column weight Wc: messages, -rx, slot tables and
+    int8 decisions, plus two per-frame int flags (early exit) if ``flags``."""
+    rs = frames + 1
+    return 4 * (E * frames + N * rs + E + N * Wc + 2 * frames * flags) + N * rs
 
 
 def smem_bytes(code: LdpcCode) -> int:
-    """Shared memory of one kernel block for this code (bp_smem_bytes)."""
+    """Shared memory of one tile-kernel block for this code (bp_smem_bytes)."""
     t = wmajor_tables(code)
-    rs = FRAMES_PER_BLOCK + 1
-    return (4 * (t.E * FRAMES_PER_BLOCK + t.N * rs + t.E + t.N * t.Wc
-                 + 2 * FRAMES_PER_BLOCK) + t.N * rs)
+    return tile_bytes(t.E, t.N, t.Wc, FRAMES_PER_BLOCK)
+
+
+def large_smem_bytes(code: LdpcCode) -> int:
+    """Shared memory of one large-code block (bp_large_smem_bytes)."""
+    t = wmajor_tables(code)
+    return tile_bytes(t.E, t.N, t.Wc, LARGE_FRAMES_PER_BLOCK)
+
+
+def exact_smem_bytes(code: LdpcCode) -> int:
+    """Shared memory of one exact-kernel block (bp_exact_smem_bytes)."""
+    t = check_major_tables(code)
+    return tile_bytes(t.E, t.N, t.Wc, FRAMES_PER_BLOCK, flags=False)
+
+
+def _weights_ok(code: LdpcCode) -> bool:
+    t = wmajor_tables(code)
+    return WR_RANGE[0] <= t.Wr <= WR_RANGE[1] and t.Wc <= WC_MAX
 
 
 def kernel_supported(code: LdpcCode) -> bool:
-    """Whether the CUDA kernels take this code (row/column weights and a
+    """Whether the tile kernels take this code (row/column weights and a
     32-frame tile of messages in one block's shared memory)."""
-    t = wmajor_tables(code)
-    return (WR_RANGE[0] <= t.Wr <= WR_RANGE[1] and t.Wc <= WC_MAX
-            and smem_bytes(code) <= SMEM_MAX)
+    return _weights_ok(code) and smem_bytes(code) <= SMEM_MAX
 
 
-def _check_gate(code: LdpcCode) -> None:
-    if not kernel_supported(code):
+def large_supported(code: LdpcCode) -> bool:
+    """Whether the large-code kernels take this code (a 16-frame tile)."""
+    return _weights_ok(code) and large_smem_bytes(code) <= SMEM_MAX
+
+
+def exact_supported(code: LdpcCode) -> bool:
+    """Whether the exact kernels take this code (a 32-frame check-major tile)."""
+    return _weights_ok(code) and exact_smem_bytes(code) <= SMEM_MAX
+
+
+def supported(code: LdpcCode, tile_only: bool = False) -> bool:
+    """Whether the precise/fast kernels take this code: the tile kernels, or
+    (unless ``tile_only``) the large-code kernels. The one routing rule of
+    make_decoder and make_sweep_step: make_decoder(backend="auto") passes
+    tile_only=True, as JAX's "auto" leaves codes beyond its Gram envelope
+    to XLA; the sweep and backend "cuda" take either kernel, as
+    pallas_decode_* do."""
+    return kernel_supported(code) or (not tile_only and large_supported(code))
+
+
+_GATES = {"tile": (kernel_supported, smem_bytes, FRAMES_PER_BLOCK),
+          "large": (large_supported, large_smem_bytes, LARGE_FRAMES_PER_BLOCK),
+          "exact": (exact_supported, exact_smem_bytes, FRAMES_PER_BLOCK)}
+
+
+def _check_gate(code: LdpcCode, kind: str = "tile") -> None:
+    fits, smem, frames = _GATES[kind]
+    if not fits(code):
         t = wmajor_tables(code)
         raise ValueError(
             f"code {code.name!r} has {edge_slots(code)} edge slots (row weight "
-            f"{t.Wr}, column weight {t.Wc}); the CUDA BP kernels keep a "
-            f"{FRAMES_PER_BLOCK}-frame tile in shared memory, "
-            f"{smem_bytes(code)} of at most {SMEM_MAX} bytes, for row weights "
+            f"{t.Wr}, column weight {t.Wc}); the CUDA {kind} BP kernels keep "
+            f"a {frames}-frame tile in shared memory, {smem(code)} of at "
+            f"most {SMEM_MAX} bytes, for row weights "
             f"{WR_RANGE[0]}-{WR_RANGE[1]} and column weights <= {WC_MAX}. "
             f"Use make_decoder(backend='torch' or 'auto').")
 
 
-def _check_args(rx, code: LdpcCode, mode: str, iterations: int) -> None:
-    if mode == "exact":
-        raise NotImplementedError(
-            "mode='exact' (the check-major exact kernels) is not ported yet: "
-            "ROADMAP.md, 'TPU kernels to port', the exact pair")
+def route(code: LdpcCode, mode: str = "exact", impl: str = "auto") -> str:
+    """The kernel a call takes: "exact", "tile" or "large" (pallas_bp._dispatch)."""
     if mode not in _MODES:
-        raise ValueError(f"unknown mode {mode!r}; use precise|fast")
+        raise ValueError(f"unknown mode {mode!r}; use exact|precise|fast")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; use auto|gram|split")
+    if impl == "split" and mode == "exact":
+        raise ValueError("impl='split' supports mode='precise' or 'fast'")
+    if mode == "exact":
+        return "exact"
+    if impl == "auto":
+        return "tile" if kernel_supported(code) else "large"
+    return "tile" if impl == "gram" else "large"
+
+
+def _check_args(rx, code: LdpcCode, iterations: int) -> None:
     if not isinstance(rx, torch.Tensor):
         raise TypeError(f"rx must be a torch.Tensor, got {type(rx).__name__}")
     if rx.device.type not in ("cpu", "cuda"):
@@ -277,72 +361,196 @@ def decode_minsum_plain(rx: torch.Tensor, code: LdpcCode, iterations: int = 20,
 
 
 # ---------------------------------------------------------------------------
+# exact decoders' plain versions (check-major, the f32 path's arithmetic)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _exact_tables(code: LdpcCode, device: torch.device) -> SimpleNamespace:
+    """Check-major tables on ``device``: int32 for the kernel, long for the
+    plain versions (-1 pads become the index of an appended zero column)."""
+    t = check_major_tables(code)
+
+    def long_(a, pad):
+        return torch.as_tensor(np.where(a >= 0, a, pad), dtype=torch.long,
+                               device=device)
+
+    cm_from_vm = np.full((t.E,), t.N * t.Wc, dtype=np.int64)
+    for j in range(t.N):
+        for v in range(t.Wc):
+            if t.var_cslots[j, v] >= 0:
+                cm_from_vm[t.var_cslots[j, v]] = j * t.Wc + v
+    return SimpleNamespace(
+        t=t,
+        chk_var_i32=torch.as_tensor(t.chk_var, dtype=torch.int32, device=device),
+        var_cslots_i32=torch.as_tensor(t.var_cslots.reshape(-1),
+                                       dtype=torch.int32, device=device),
+        chk_var=long_(t.chk_var, t.N),
+        var_cslots=long_(t.var_cslots, t.E),
+        cm_from_vm=torch.as_tensor(cm_from_vm, device=device),
+        cmask=torch.as_tensor(t.chk_var.reshape(t.M, t.Wr) >= 0, device=device),
+        vmask=torch.as_tensor(t.var_cslots >= 0, device=device))
+
+
+def _running(x: torch.Tensor, op, reverse: bool = False) -> list[torch.Tensor]:
+    """Inclusive running op over dim 2 of (B, n, W), one column at a time
+    from the front (or the back), as torch.cumsum / cumprod do on the CPU."""
+    W = x.shape[2]
+    order = range(W - 1, -1, -1) if reverse else range(W)
+    out, acc = [None] * W, None
+    for w in order:
+        acc = x[:, :, w] if acc is None else op(acc, x[:, :, w])
+        out[w] = acc
+    return out
+
+
+def _decode_exact_plain(rx: torch.Tensor, code: LdpcCode, iterations: int,
+                        sumproduct: bool) -> torch.Tensor:
+    d = _exact_tables(code, rx.device)
+    t = d.t
+    B = rx.shape[0]
+    r = -rx                                        # r (SPA) / Lci (min-sum)
+    big = torch.finfo(torch.float32).max
+    if iterations == 0:                            # the decision of r
+        return (r <= 0 if sumproduct else r < 0).to(torch.int8)
+
+    def half_step(msg):
+        """Check step on (B, E) check-major messages, then each variable's
+        terms (B, N, Wc) in var-major order (pads 0) and their running sums."""
+        c = msg.view(B, t.M, t.Wr)
+        if sumproduct:
+            th = torch.where(d.cmask, torch.tanh(c / 2), 1.0)
+            ones = torch.ones_like(th[:, :, 0])
+            pre = [ones] + _running(th[:, :, :-1], torch.mul)
+            suf = _running(th[:, :, 1:], torch.mul, reverse=True) + [ones]
+            T = torch.stack(pre, 2) * torch.stack(suf, 2)
+            cm = torch.log((1 + T) / (1 - T))
+        else:
+            alpha = (c > 0).float() - (c < 0).float()
+            beta = torch.where(d.cmask, torch.abs(c), big)
+            prod = torch.where(d.cmask, alpha, 1.0).prod(2, keepdim=True)
+            min1 = beta.amin(2, keepdim=True)
+            is_arg = torch.nn.functional.one_hot(
+                beta.argmin(2), t.Wr).to(torch.bool)
+            min2 = torch.where(is_arg, big, beta).amin(2, keepdim=True)
+            cm = (prod * alpha) * torch.where(is_arg, min2, min1)
+        x = torch.where(d.vmask, _append(cm.reshape(B, -1), 0.0)[:, d.var_cslots],
+                        0.0)
+        if sumproduct:
+            x = torch.where(d.vmask, x + r[:, :, None], 0.0)
+        return x, _running(x, torch.add)
+
+    msg = _append(r, 0.0)[:, d.chk_var]            # (B, E), pads read 0
+    for _ in range(iterations - 1):
+        x, cum = half_step(msg)
+        if sumproduct:                             # ops/decode.py::_excl_sum
+            rcum = _running(x, torch.add, reverse=True)
+            vm = torch.stack([(cum[v] - x[:, :, v]) + (rcum[v] - x[:, :, v])
+                              for v in range(t.Wc)], 2)
+        else:
+            vm = (r + cum[-1])[:, :, None] - x
+        msg = _append(vm.reshape(B, -1), 0.0)[:, d.cm_from_vm]
+    tot = half_step(msg)[1][-1]
+    return (tot <= 0 if sumproduct else r + tot < 0).to(torch.int8)
+
+
+def decode_sumproduct_exact_plain(rx: torch.Tensor, code: LdpcCode,
+                                  iterations: int = 20) -> torch.Tensor:
+    """Plain PyTorch version of the exact sum-product kernel, on rx's device."""
+    return _decode_exact_plain(rx, code, iterations, True)
+
+
+def decode_minsum_exact_plain(rx: torch.Tensor, code: LdpcCode,
+                              iterations: int = 20) -> torch.Tensor:
+    """Plain PyTorch version of the exact min-sum kernel, on rx's device."""
+    return _decode_exact_plain(rx, code, iterations, False)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
+def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
             iterations: int, early_exit: bool, norm_offset: float = 0.0,
             norm_scale: float = 1.0) -> torch.Tensor:
     from ._build import load_library
 
-    _check_gate(code)
-    lib = load_library()
-    d = _dev_tables(code, rx.device)
-    t = d.t
-    out = torch.empty((rx.shape[0], t.N), dtype=torch.int8, device=rx.device)
+    _check_gate(code, kind)
+    out = torch.empty((rx.shape[0], code.N), dtype=torch.int8, device=rx.device)
     with torch.cuda.device(rx.device):
         stream = torch.cuda.current_stream(rx.device).cuda_stream
-        err = lib.bp_decode(
-            int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
-            d.slot_var_i32.data_ptr(), d.var_slots_i32.data_ptr(),
-            t.M, t.N, t.Wr, t.Wc, int(iterations), int(early_exit),
-            ctypes.c_float(norm_offset), ctypes.c_float(norm_scale),
-            int(norm_offset != 0.0), int(norm_scale != 1.0), stream)
+        if kind == "exact":
+            lib = load_library("bp_exact")
+            d = _exact_tables(code, rx.device)
+            err = lib.bp_exact_decode(
+                int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
+                d.chk_var_i32.data_ptr(), d.var_cslots_i32.data_ptr(),
+                d.t.M, d.t.N, d.t.Wr, d.t.Wc, int(iterations), stream)
+            what = lib.bp_exact_error_string
+        else:
+            lib = load_library("bp_wmajor")
+            d = _dev_tables(code, rx.device)
+            fn = lib.bp_decode if kind == "tile" else lib.bp_decode_large
+            err = fn(int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
+                     d.slot_var_i32.data_ptr(), d.var_slots_i32.data_ptr(),
+                     d.t.M, d.t.N, d.t.Wr, d.t.Wc, int(iterations),
+                     int(early_exit), ctypes.c_float(norm_offset),
+                     ctypes.c_float(norm_scale), int(norm_offset != 0.0),
+                     int(norm_scale != 1.0), stream)
+            what = lib.bp_error_string
+    name = f"bp_{'sumproduct' if sumproduct else 'minsum'}{_ROUTE_SUFFIX[kind]}"
     if err:
-        raise RuntimeError(
-            f"bp_decode launch failed: {lib.bp_error_string(err).decode()}")
+        raise RuntimeError(f"{name} launch failed: {what(err).decode()}")
+    LAUNCHES[name] += 1
     return out
 
 
-def cuda_decode_sumproduct(rx: torch.Tensor, code: LdpcCode,
-                           iterations: int = 20, mode: str = "precise",
-                           early_exit: bool = False) -> torch.Tensor:
-    """Tanh-rule SPA decode, rx (B, N) f32 -> vhat (B, N) int8.
-
-    On a CUDA tensor: the hand-written kernel, launched on the current stream
-    (counted in ``cuda_decode_sumproduct.launches``). On a CPU tensor: its
-    plain version. ``mode`` is "precise" or "fast" (the same arithmetic
-    here); early_exit=True freezes each frame on syndrome success, checked
-    every iteration with no guard, as the reference does.
-    """
-    _check_args(rx, code, mode, iterations)
+def _decode(sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
+            iterations: int, mode: str, early_exit: bool, impl: str,
+            norm_offset: float = 0.0, norm_scale: float = 1.0) -> torch.Tensor:
+    kind = route(code, mode, impl)
+    _check_args(rx, code, iterations)
+    if kind == "exact" and early_exit:
+        raise NotImplementedError("early_exit requires mode='precise' or 'fast'")
     if rx.device.type == "cpu":
-        return decode_sumproduct_plain(rx, code, iterations, early_exit)
-    if rx.shape[0] == 0:
-        return torch.empty((0, code.N), dtype=torch.int8, device=rx.device)
-    out = _launch(True, rx, code, iterations, early_exit)
-    cuda_decode_sumproduct.launches += 1
-    return out
-
-
-def cuda_decode_minsum(rx: torch.Tensor, code: LdpcCode, iterations: int = 20,
-                       mode: str = "precise", early_exit: bool = False,
-                       norm_offset: float = 0.0,
-                       norm_scale: float = 1.0) -> torch.Tensor:
-    """Min-sum decode, rx (B, N) f32 -> vhat (B, N) int8, with the optional
-    offset/scale corrections. See cuda_decode_sumproduct; the launches are
-    counted in ``cuda_decode_minsum.launches``."""
-    _check_args(rx, code, mode, iterations)
-    if rx.device.type == "cpu":
+        if kind == "exact":
+            return _decode_exact_plain(rx, code, iterations, sumproduct)
+        if sumproduct:
+            return decode_sumproduct_plain(rx, code, iterations, early_exit)
         return decode_minsum_plain(rx, code, iterations, early_exit,
                                    norm_offset, norm_scale)
     if rx.shape[0] == 0:
+        _check_gate(code, kind)
         return torch.empty((0, code.N), dtype=torch.int8, device=rx.device)
-    out = _launch(False, rx, code, iterations, early_exit,
-                  float(norm_offset), float(norm_scale))
-    cuda_decode_minsum.launches += 1
-    return out
+    return _launch(kind, sumproduct, rx, code, iterations, early_exit,
+                   float(norm_offset), float(norm_scale))
 
 
-cuda_decode_sumproduct.launches = 0
-cuda_decode_minsum.launches = 0
+def cuda_decode_sumproduct(rx: torch.Tensor, code: LdpcCode,
+                           iterations: int = 20, mode: str = "exact",
+                           early_exit: bool = False,
+                           impl: str = "auto") -> torch.Tensor:
+    """Tanh-rule SPA decode, rx (B, N) f32 -> vhat (B, N) int8.
+
+    On a CUDA tensor: a hand-written kernel, launched on the current stream;
+    on a CPU tensor: its plain version. ``mode`` is "exact" (the f32 path's
+    decisions, fixed iterations only), "precise" or "fast" (the same
+    arithmetic here); ``impl`` picks the precise/fast kernel: "auto", "gram"
+    (the tile kernel) or "split" (the large-code kernel). early_exit=True
+    freezes each frame on syndrome success, checked every iteration with no
+    guard, as the reference does. Errors as pallas_decode_sumproduct's.
+    """
+    return _decode(True, rx, code, iterations, mode, early_exit, impl)
+
+
+def cuda_decode_minsum(rx: torch.Tensor, code: LdpcCode, iterations: int = 20,
+                       mode: str = "exact", early_exit: bool = False,
+                       norm_offset: float = 0.0, norm_scale: float = 1.0,
+                       impl: str = "auto") -> torch.Tensor:
+    """Min-sum decode, rx (B, N) f32 -> vhat (B, N) int8, with the optional
+    offset/scale corrections (not in mode "exact"). See
+    cuda_decode_sumproduct."""
+    if (norm_offset, norm_scale) != (0.0, 1.0) and mode == "exact":
+        raise NotImplementedError(
+            "min-sum corrections require mode='precise' or 'fast'")
+    return _decode(False, rx, code, iterations, mode, early_exit, impl,
+                   norm_offset, norm_scale)

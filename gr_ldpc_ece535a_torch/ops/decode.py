@@ -341,10 +341,12 @@ def make_decoder(
     backend: "torch" (the plain decoders above, any device and dtype),
     "cuda" (the hand-written BP kernels, precise mode), "cuda_fast" (the
     same kernels, fast mode), or "auto" (the kernels' wrappers for min-sum
-    and sum-product when the code fits the kernels' size gate, the plain
-    decoders otherwise). The wrappers launch the kernel on a CUDA tensor
-    and run the kernel's plain version on a CPU tensor; "cuda" and
-    "cuda_fast" refuse CPU tensors.
+    and sum-product when the code fits the tile kernels, the plain decoders
+    otherwise, as JAX's "auto" leaves codes beyond its Gram envelope to
+    XLA). "cuda" and "cuda_fast" take any code that the tile or the
+    large-code kernels take, and raise at construction otherwise. The
+    wrappers launch a kernel on a CUDA tensor and run its plain version on
+    a CPU tensor; "cuda" and "cuda_fast" refuse CPU tensors.
     """
     if isinstance(method, int):
         method = METHODS[method]
@@ -352,8 +354,8 @@ def make_decoder(
         raise ValueError(f"unknown backend {backend!r}")
     if backend != "torch" and method in _BP_METHODS:
         from .cuda_bp import (cuda_decode_minsum, cuda_decode_sumproduct,
-                              kernel_supported)
-        if kernel_supported(code):
+                              supported)
+        if supported(code, tile_only=backend == "auto"):
             kfn = (cuda_decode_minsum if method == "minsum"
                    else cuda_decode_sumproduct)
             fn = functools.partial(
@@ -365,8 +367,9 @@ def make_decoder(
             # fail at construction, not at first call
             raise ValueError(
                 f"code {code.name!r} has {edge_slots(code)} edge slots and "
-                f"row weight {int(code.H.sum(1).max())}, beyond the CUDA BP "
-                f"kernels' size gate. Use backend='torch' or 'auto'.")
+                f"row weight {int(code.H.sum(1).max())}, beyond the size gates "
+                f"of the CUDA BP kernels (tile and large-code). Use "
+                f"backend='torch' or 'auto'.")
     elif backend in ("cuda", "cuda_fast"):
         raise ValueError(
             f"backend={backend!r} supports minsum/sumproduct, not {method!r}")

@@ -11,7 +11,10 @@ Two families of tables:
   var-major    (B, N, Wc): slot (j, v) holds the edge to check   var_nbrs[j, v]
 
   w-major      (B, Wr*M):  slot e = w*M + m holds the w-th edge of check m,
-                           the layout of the hand-written BP kernels
+                           the layout of the precise/fast BP kernels
+
+The exact kernels keep the check-major layout, flattened (slot e = m*Wr + w),
+with the tables of ``CheckMajorTables``.
 
 All tables are numpy; the decoders move them to the device they run on.
 """
@@ -26,7 +29,9 @@ import numpy as np
 from gr_ldpc_ece535a_tpu.codes import LdpcCode
 
 __all__ = ["EdgeLayout", "edge_layout", "edge_slots", "WmajorTables",
-           "wmajor_tables", "tables_from_jax", "PAD_BIG"]
+           "wmajor_tables", "tables_from_jax", "tables_from_jax_split",
+           "CheckMajorTables", "check_major_tables", "tables_from_jax_exact",
+           "PAD_BIG"]
 
 # additive constant the JAX kernels keep on w-major pad slots (pallas_bp._BIG)
 PAD_BIG = np.float32(1e30)
@@ -124,6 +129,28 @@ def wmajor_tables(code: LdpcCode) -> WmajorTables:
     return _tables_from_slot_var(slot_var, M, N, Wr, Wc)
 
 
+def _onehot_edge_vars(bcm: np.ndarray) -> np.ndarray:
+    """(N, E) one-hot edge -> variable matrix -> (E,) variable of each
+    slot, -1 on pad slots (an all-zero column)."""
+    bcm = np.asarray(bcm)
+    if not np.isin(bcm, (0.0, 1.0)).all() or (bcm.sum(0) > 1).any():
+        raise ValueError("bcm is not a one-hot edge -> variable matrix")
+    return np.where(bcm.sum(0) == 1, bcm.argmax(0), -1).astype(np.int32)
+
+
+def _wmajor_from_bcm(bcm: np.ndarray, padbig: np.ndarray,
+                     Wr: int) -> WmajorTables:
+    N, E = bcm.shape
+    if E % Wr:
+        raise ValueError(f"{E} edge slots is not a multiple of Wr={Wr}")
+    slot_var = _onehot_edge_vars(bcm)
+    want_pad = np.where(slot_var >= 0, np.float32(0.0), PAD_BIG).reshape(E, 1)
+    if not np.array_equal(np.asarray(padbig).reshape(E, 1), want_pad):
+        raise ValueError("padbig does not mark exactly the pad slots of bcm")
+    return _tables_from_slot_var(slot_var, E // Wr, N, Wr,
+                                 int(np.asarray(bcm).sum(1).max()))
+
+
 def tables_from_jax(bcm: np.ndarray, gram: np.ndarray, padbig: np.ndarray,
                     Wr: int) -> WmajorTables:
     """The w-major tables from the JAX package's ``_wmajor_layout(code)``.
@@ -134,21 +161,84 @@ def tables_from_jax(bcm: np.ndarray, gram: np.ndarray, padbig: np.ndarray,
     pad constant must agree with ``bcm``, or this raises ValueError.
     """
     bcm = np.asarray(bcm)
-    N, E = bcm.shape
-    if E % Wr:
-        raise ValueError(f"{E} edge slots is not a multiple of Wr={Wr}")
-    if not np.isin(bcm, (0.0, 1.0)).all() or (bcm.sum(0) > 1).any():
-        raise ValueError("bcm is not a one-hot edge -> variable matrix")
-    real = bcm.sum(0) == 1
-    slot_var = np.where(real, bcm.argmax(0), -1).astype(np.int32)
-    Wc = int(bcm.sum(1).max())
-    tables = _tables_from_slot_var(slot_var, E // Wr, N, Wr, Wc)
-
+    tables = _wmajor_from_bcm(bcm, padbig, Wr)
     want_gram = bcm.T @ bcm
     np.fill_diagonal(want_gram, 0.0)
     if not np.array_equal(np.asarray(gram), want_gram):
         raise ValueError("gram is not the zero-diagonal edge Gram of bcm")
-    want_pad = np.where(real, np.float32(0.0), PAD_BIG).reshape(E, 1)
-    if not np.array_equal(np.asarray(padbig).reshape(E, 1), want_pad):
-        raise ValueError("padbig does not mark exactly the pad slots of bcm")
     return tables
+
+
+def _single(a: np.ndarray, width: int, name: str) -> np.ndarray:
+    """A constant of width ``width``, or its doubled precise form [a | a]."""
+    a = np.asarray(a)
+    if a.shape[1] == 2 * width:
+        if not np.array_equal(a[:, :width], a[:, width:]):
+            raise ValueError(f"{name} is not a doubled [{name} | {name}] matrix")
+        a = a[:, :width]
+    if a.shape[1] != width:
+        raise ValueError(f"{name} has {a.shape[1]} columns, expected {width}")
+    return a
+
+
+def tables_from_jax_split(bcm: np.ndarray, bcmT: np.ndarray,
+                          padbig: np.ndarray, Wr: int) -> WmajorTables:
+    """The w-major tables from the constants of ``pallas_bp._run_split``.
+
+    ``bcm`` is (N, E) or its doubled precise form (N, 2E), ``bcmT`` (E, N)
+    or (E, 2N); ``bcmT`` must be the transpose of ``bcm``. The split
+    kernels compute the same decoder as the Gram kernels, so the tables
+    are those of ``tables_from_jax``.
+    """
+    N, E = np.asarray(bcm).shape[0], np.asarray(bcmT).shape[0]
+    bcm, bcmT = _single(bcm, E, "bcm"), _single(bcmT, N, "bcmT")
+    if not np.array_equal(bcmT, bcm.T):
+        raise ValueError("bcmT is not the transpose of bcm")
+    return _wmajor_from_bcm(bcm, padbig, Wr)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckMajorTables:
+    """Index tables of the flat check-major layout (slot e = m*Wr + w), the
+    layout of the exact kernels."""
+    M: int
+    N: int
+    Wr: int
+    Wc: int
+    chk_var: np.ndarray       # (E,) int32: variable of slot e, -1 on pad slots
+    var_cslots: np.ndarray    # (N, Wc) int32: a variable's slots in var-major
+                              # order (ascending check), -1 pad
+
+    @property
+    def E(self) -> int:
+        return self.Wr * self.M
+
+
+@functools.lru_cache(maxsize=None)
+def check_major_tables(code: LdpcCode) -> CheckMajorTables:
+    lay = edge_layout(code)
+    return CheckMajorTables(
+        M=lay.M, N=lay.N, Wr=lay.Wr, Wc=lay.Wc,
+        chk_var=np.where(lay.chk_mask, lay.chk_nbrs, -1).reshape(-1)
+        .astype(np.int32),
+        var_cslots=np.where(lay.var_mask, lay.vm_from_cm, -1).astype(np.int32))
+
+
+def tables_from_jax_exact(B_cm: np.ndarray, chk_mask: np.ndarray,
+                          Wr: int) -> CheckMajorTables:
+    """The check-major tables from the constants of ``pallas_bp._run_exact``:
+    ``B_cm`` (N, M*Wr) one-hot edge -> variable (``lay.B_cm``) and the
+    (E, 1) float mask of real slots (``lay.chk_mask``). The mask must mark
+    exactly the slots ``B_cm`` uses, or this raises ValueError."""
+    B_cm = np.asarray(B_cm)
+    N, E = B_cm.shape
+    if E % Wr:
+        raise ValueError(f"{E} edge slots is not a multiple of Wr={Wr}")
+    chk_var = _onehot_edge_vars(B_cm)
+    if not np.array_equal(np.asarray(chk_mask).reshape(E) > 0, chk_var >= 0):
+        raise ValueError("chk_mask does not mark exactly the real slots of B_cm")
+    # a variable's slots in ascending order, which in this layout is
+    # ascending check: the var-major order
+    t = _tables_from_slot_var(chk_var, E // Wr, N, Wr, int(B_cm.sum(1).max()))
+    return CheckMajorTables(M=t.M, N=t.N, Wr=t.Wr, Wc=t.Wc, chk_var=t.slot_var,
+                            var_cslots=t.var_slots)

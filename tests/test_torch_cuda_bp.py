@@ -133,10 +133,16 @@ def test_other_codes(code_name):
 
 
 @pytest.mark.parametrize("kind", ["minsum", "sumproduct"])
-def test_exact_mode_is_not_ported(kind):
+def test_exact_mode_is_ported(kind):
+    """mode="exact" is the default, as in pallas_decode_*, and gives the
+    Pallas exact kernel's decisions (tests/test_torch_exact.py holds it to
+    the f32 paths too); an unknown mode still raises."""
     code = get_code("block_32_64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PAIRS[kind][0](torch.zeros((4, code.N)), code, 5, mode="exact")
+    rx = _codewords(code, 300, seed=17)
+    got, want = _both(kind, rx, code, 5)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="early_exit"):
+        PAIRS[kind][0](torch.zeros((4, code.N)), code, 5, early_exit=True)
     with pytest.raises(ValueError, match="unknown mode"):
         PAIRS[kind][0](torch.zeros((4, code.N)), code, 5, mode="turbo")
 
@@ -158,13 +164,14 @@ def test_wrapper_rejects_bad_inputs(kind):
 def test_cpu_tensors_do_not_count_launches():
     code = get_code("block_32_64")
     rx = torch.from_numpy(_codewords(code, 64, seed=1))
-    before = (cuda_bp.cuda_decode_minsum.launches,
-              cuda_bp.cuda_decode_sumproduct.launches)
+    before = dict(cuda_bp.LAUNCHES)
     for kind in PAIRS:
-        for early_exit in (False, True):
-            PAIRS[kind][0](rx, code, 5, early_exit=early_exit)
-    assert (cuda_bp.cuda_decode_minsum.launches,
-            cuda_bp.cuda_decode_sumproduct.launches) == before == (0, 0)
+        PAIRS[kind][0](rx, code, 5)
+        for impl in ("gram", "split"):
+            for early_exit in (False, True):
+                PAIRS[kind][0](rx, code, 5, mode="precise", impl=impl,
+                               early_exit=early_exit)
+    assert cuda_bp.LAUNCHES == before == dict.fromkeys(cuda_bp.KERNELS, 0)
 
 
 def test_size_gate():
@@ -188,7 +195,8 @@ def test_kernel_matches_plain_version_on_gpu(kind):
     plain = (cuda_bp.decode_minsum_plain if kind == "minsum"
              else cuda_bp.decode_sumproduct_plain)
     for early_exit in (False, True):
-        got = PAIRS[kind][0](rx, code, 20, early_exit=early_exit)
+        got = PAIRS[kind][0](rx, code, 20, mode="precise",
+                             early_exit=early_exit)
         want = plain(rx, code, 20, early_exit)
         torch.cuda.synchronize()
         assert (got == want).all(1).float().mean() >= 0.99

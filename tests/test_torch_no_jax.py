@@ -38,7 +38,8 @@ def _ids(files):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"__init__.py", "entry.py", "cuda_bp.py", "decode.py",
-            "layout.py", "_build.py"} <= names
+            "layout.py", "_build.py", "sweep.py", "waterfall.py",
+            "ldpc_ber_sweep.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))
