@@ -5,8 +5,9 @@
 
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
-  2. build    nvcc builds csrc/bp_wmajor.cu and csrc/bp_exact.cu, in parallel,
-              into gr_ldpc_ece535a_torch/_build/; prints ptxas's summary
+  2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu and
+              csrc/bp_study.cu, in parallel, into gr_ldpc_ece535a_torch/_build/;
+              prints ptxas's summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
               rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
               iterations, both methods x both modes x both forms, plus edge
@@ -15,7 +16,10 @@ Phases, each of which raises on a miss:
               on gen_256_512 and gen_320_640; each sweep step's decoder on
               the rx that step draws, at the shapes of the sweeps of phase 4
               (sim_50_100 125,000 x 5, gen_256_512 131,072 x 20, early exit);
-              impl="split" against the tile
+              impl="split" against the tile; every study instance at
+              131,072 x 20 against its plain version, and the study variants
+              whose arithmetic is the shipped tile kernel's (or base's, or
+              explog's) against it, 0 mismatching frames
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -26,8 +30,12 @@ Phases, each of which raises on a miss:
                           gen_256_512 sweep on the large-code kernels
                 decode    cuda_decode_*(rx, code) with its default mode,
                           "exact", on the forward's rx
+                study     the main() of each study script under
+                          gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
+                          proto_r3b, proto_r4b) at 131,072 x 20, 4 dB; each
+                          times its variants' kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
-              the whole forward and of each sweep point
+              the whole forward and of each sweep point; the study's table
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -53,7 +61,6 @@ FIXED_MAX_SUCC_GAP = 0.01      # fixed iterations: syndrome-success share gap
 FER_MAX = {"sumproduct": 0.03, "minsum": 0.005}   # payload frames, 5 dB
 EXACT_MIN_AGREE = 0.999        # exact kernel vs the f32 path: frame agreement
 LARGE_FRAMES = 16384
-TIMED_LAUNCHES = 20
 SWEEP_REF = "results/waterfall_sim_50_100_4dec_1e6.json"
 SWEEP_FRAMES = 1_000_000
 SWEEP_GRID = np.arange(-7.0, 10.0 + 0.25, 0.5)   # run_waterfall's defaults
@@ -69,6 +76,18 @@ REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
             "bp_minsum_large": f"{_PALLAS}:668",
             "bp_sumproduct_exact": f"{_PALLAS}:260",
             "bp_minsum_exact": f"{_PALLAS}:207"}
+STUDY_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study.cu"
+# study instance -> the prototype kernel it stands for (study_phi is also
+# proto_r3b.py:192's "full" and proto_r4b.py:34's "phi")
+STUDY_REPLACES = {
+    **{n: "tools/proto_r3b.py:85" for n in (
+        "study_phi", "study_phi_x2", "study_explog", "study_explog_x2")},
+    **{n: "tools/proto_r3b.py:192" for n in (
+        "study_stub", "study_phi_noagg", "study_phi_bf16")},
+    "study_tanhprod": "tools/proto_r4b.py:34",
+    **{f"study_cm{s}": "tools/ablate_pallas.py:27" for s in (
+        "", "_no_tanh", "_no_log", "_no_tanh_log", "_no_excl", "_no_matmul",
+        "_bf16", "_all_off")}}
 
 
 def log(*args) -> None:
@@ -80,6 +99,17 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def clock_line() -> str:
+    """The card's SM clock, power draw, temperature and clock-limit reasons
+    now, for reading the times beside it (never fails the run)."""
+    q = ("clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+         "clocks_throttle_reasons.active")
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={q}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return f"{q} = {(out.stdout or out.stderr).strip()}"
 
 
 def main() -> int:
@@ -95,13 +125,15 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.ops import (
         awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
         encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
-    from gr_ldpc_ece535a_torch.ops import cuda_bp
+    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study
     from gr_ldpc_ece535a_torch.ops._build import build, load_library
     from gr_ldpc_ece535a_torch.ops.layout import (
         check_major_tables, edge_slots, wmajor_tables)
     from gr_ldpc_ece535a_torch.parallel import make_sweep_step
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
+    from gr_ldpc_ece535a_torch.tools import ablate_pallas, proto_r3b, proto_r4b
+    from gr_ldpc_ece535a_torch.tools._timing import make_inputs, time_decode
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -123,6 +155,7 @@ def main() -> int:
         for line in build_log.splitlines() + ["Compiling (end)"]:
             kernel = re.search(
                 r"(bp_(?:exact_)?kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
+            study = cuda_study.instance_of(line)
             if "Compiling" in line:
                 if name:
                     log(f"    {name}: {'; '.join(notes)}")
@@ -132,9 +165,12 @@ def main() -> int:
                     name = (f"{kernel[1]}<WR={kernel[2]}, "
                             f"{'sumproduct' if kernel[3] == '1' else 'minsum'}, "
                             f"{tile}>")
+                elif study:
+                    name = study
             elif name and ("Used" in line or "spill" in line):
                 notes.append(line.split(":", 1)[-1].strip())
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
+    slib = cuda_study._study_lib()    # checks its instance table
     gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
            for m, n in ((200, 400), (256, 512), (320, 640))}
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
@@ -147,6 +183,14 @@ def main() -> int:
                 cuda_bp.exact_smem_bytes(c))
         if got != want:
             raise AssertionError(f"smem plan differs for {c.name}: {got} {want}")
+        for n in cuda_study.INSTANCES:
+            if cuda_study.study_supported(c, n):
+                got, want = (slib.bp_study_smem_bytes(
+                                 cuda_study.kernel_index(n), t.M, t.N, t.Wc),
+                             cuda_study.study_smem_bytes(c, n))
+                if got != want:
+                    raise AssertionError(
+                        f"smem plan of {n} differs for {c.name}: {got} {want}")
 
     kernels = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                "minsum": cuda_bp.cuda_decode_minsum}
@@ -157,10 +201,8 @@ def main() -> int:
     f32_paths = {"sumproduct": decode_sumproduct, "minsum": decode_minsum}
 
     def codewords(code, B, ebn0, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        d = torch.randint(0, 2, (B, code.K), generator=g, device=dev,
-                          dtype=torch.int8)
-        return awgn(g, bpsk_map(encode_bits(d, code)), ebn0)
+        return make_inputs(code, B, torch.Generator(device=dev).manual_seed(seed),
+                           dev, ebn0)
 
     def compare(tag, vk, vp, code, early_exit, identical=False,
                 min_agree=None):
@@ -205,7 +247,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return vk, vp
 
-    max_err = dict.fromkeys(cuda_bp.KERNELS, 0)
+    max_err = dict.fromkeys((*cuda_bp.KERNELS, *cuda_study.INSTANCES), 0)
 
     # -- 3. kernels vs plain versions ----------------------------------------
     code = get_code("block_32_64")
@@ -337,12 +379,38 @@ def main() -> int:
                     f"{'early_exit' if early_exit else 'fixed'} {N_FRAMES}x"
                     f"{ITERATIONS}", vs, vg, code, early_exit, identical=True)
 
+    # the study instances against their plain versions, 0 mismatching frames:
+    # the variants decide nearly the same frames, so only identity shows that
+    # an instance ran its own arithmetic; the variants whose arithmetic is the
+    # shipped tile kernel's against it, and the two-frames-a-thread forms
+    # against the one-frame forms
+    shape = f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB"
+    for name in cuda_study.INSTANCES:
+        vk = cuda_study.study_decode(name, rx4, code, ITERATIONS)
+        vp = cuda_study.study_plain(name, rx4, code, ITERATIONS)
+        torch.cuda.synchronize()
+        max_err[name] = compare(f"{name} vs plain {shape}", vk, vp, code, False,
+                                identical=True)
+    shipped = kernels["sumproduct"](rx4, code, ITERATIONS, mode="precise")
+    runs = {"proto_r3b base": proto_r3b.run("base", rx4, code, ITERATIONS),
+            "proto_r3b full": proto_r3b.run_abl("full", rx4, code, ITERATIONS),
+            "proto_r4b phi": proto_r4b.run("phi", rx4, code, ITERATIONS)}
+    for tag, v in runs.items():
+        compare(f"{tag} vs the shipped tile kernel {shape}", v, shipped, code,
+                False, identical=True)
+    for two, one in (("skew2", "base"), ("skewlog", "explog")):
+        compare(f"proto_r3b {two} vs {one} {shape}",
+                proto_r3b.run(two, rx4, code, ITERATIONS),
+                proto_r3b.run(one, rx4, code, ITERATIONS), code, False,
+                identical=True)
+    del shipped, runs
+
     # -- 4. paths -----------------------------------------------------------
-    def drive(path, fn, want):
-        cuda_bp.LAUNCHES.update(dict.fromkeys(cuda_bp.LAUNCHES, 0))
+    def drive(path, fn, want, launches=cuda_bp.LAUNCHES):
+        launches.update(dict.fromkeys(launches, 0))
         out = fn()
         torch.cuda.synchronize()
-        counts = dict(cuda_bp.LAUNCHES)
+        counts = dict(launches)
         log(f"[{path}] launches during the path: {counts}")
         for name in want:
             if counts[name] < 1:
@@ -424,22 +492,31 @@ def main() -> int:
     path_counts = {"": fwd_counts, "_large": sweep_counts,
                    "_exact": dec_counts}
 
+    # each study script's main at the prototypes' size: its variants'
+    # kernels, timed beside their plain versions
+    study_rows, study_counts = [], dict.fromkeys(cuda_study.INSTANCES, 0)
+    log(f"[study] before: {clock_line()}")
+    for tool in (ablate_pallas, proto_r3b, proto_r4b):
+        want = {*tool.VARIANTS.values(),
+                *getattr(tool, "ABL_VARIANTS", {}).values()}
+        rows, counts = drive(
+            tool.__name__.rsplit(".", 1)[1],
+            functools.partial(tool.main, "cuda", N_FRAMES, ITERATIONS), want,
+            cuda_study.LAUNCHES)
+        study_rows += rows
+        for name, n in counts.items():
+            study_counts[name] += n
+    for row in study_rows:   # the parity candidates against their reference
+        if row["tag"].startswith("spa-") and not row["agree"] >= FIXED_MIN_AGREE:
+            raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
+                                 f"{row['agree']} with the shipped kernel")
+
     # -- 5. times ---------------------------------------------------------------
-    def cuda_ms(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_LAUNCHES):
-            fn()
-        stop.record()
-        stop.synchronize()
-        return start.elapsed_time(stop) / TIMED_LAUNCHES
+    log(f"[times] before: {clock_line()}")
 
     def pair_ms(tag, k, p, bits):
-        p1, k1, k2, p2 = cuda_ms(p), cuda_ms(k), cuda_ms(k), cuda_ms(p)
+        p1, k1, k2, p2 = (time_decode(p), time_decode(k), time_decode(k),
+                          time_decode(p))
         km, pm = (k1 + k2) / 2, (p1 + p2) / 2
         log(f"[times] {tag}: kernel {k1:.4f} / {k2:.4f} ms "
             f"({bits / (km / 1e3):.4e} info bit/s), plain "
@@ -449,7 +526,6 @@ def main() -> int:
 
     info_bits = N_FRAMES * code.K
     times = {}
-    shape = f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB"
     for method in kernels:
         for early_exit in (False, True):
             form = "early_exit" if early_exit else "fixed"
@@ -475,7 +551,7 @@ def main() -> int:
             for impl in ("gram", "split"):
                 if impl == "gram" and not cuda_bp.kernel_supported(c):
                     continue
-                ms = cuda_ms(lambda: kernels[method](
+                ms = time_decode(lambda: kernels[method](
                     rxt, c, ITERATIONS, mode="precise", impl=impl))
                 log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
                     f"{ITERATIONS}: kernel {ms:.4f} ms "
@@ -502,7 +578,7 @@ def main() -> int:
               "pack_bits": lambda: pack_bits(bits5[:, code.M:])}
     for name, fn in stages.items():
         log(f"[times] forward stage {name}, {N_FRAMES} frames: "
-            f"{cuda_ms(fn):.4f} ms [{card}]")
+            f"{time_decode(fn):.4f} ms [{card}]")
     # one step of the reference experiment (125,000 frames, 3 dB), by stage
     sim = get_code("sim_50_100")
     fps = SWEEP_FRAMES // 8
@@ -517,7 +593,7 @@ def main() -> int:
         parts[f"decode {m}"] = functools.partial(dec, rxs)
     for name, fn in parts.items():
         log(f"[times] sweep step stage {name}, sim_50_100 {fps} frames: "
-            f"{cuda_ms(fn):.4f} ms [{card}]")
+            f"{time_decode(fn):.4f} ms [{card}]")
     for m in res.methods:
         step = make_sweep_step(sim, dev, method=m, iterations=5,
                                frames_per_device=fps)
@@ -535,6 +611,22 @@ def main() -> int:
             f"(s, frames/s): " + ", ".join(
                 f"{e:+.1f} dB {s:.4f} {per_point / s:.4e}"
                 for e, s in zip(r.ebn0_db, r.point_wall_s)) + f" [{card}]")
+    # the study's table, each variant against its script's first (the
+    # shipped arithmetic: ablate_pallas baseline, proto_r3b base, proto_r4b phi)
+    log(f"[study] block_32_64 {shape}, CUDA events, median of 20 [{card}]")
+    log(f"    {'script':11s} {'variant':13s} {'instance':21s} {'kernel ms':>9s} "
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs first':>8s} agree")
+    firsts = {}
+    for row in study_rows:
+        first = firsts.setdefault(row["tag"].replace("abl", "spa-precise"),
+                                  row["ms"])
+        agree = "-" if row["agree"] is None else f"{row['agree']:.5f}"
+        log(f"    {row['tag']:11s} {row['variant']:13s} {row['instance']:21s} "
+            f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
+            f"{row['ms'] / first:8.3f} {agree}")
+    for row in study_rows:    # each instance's time: its first variant's row
+        times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
+    log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""
         return name[name.index("_", 3):] if name.count("_") == 2 else ""
@@ -545,7 +637,12 @@ def main() -> int:
          "launches": path_counts[route_of(name)][name],
          "max_abs_err": max_err[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in cuda_bp.KERNELS]}
+        for name in cuda_bp.KERNELS] + [
+        {"name": name, "route": "cuda", "source": STUDY_SOURCE,
+         "replaces": STUDY_REPLACES[name], "launches": study_counts[name],
+         "max_abs_err": max_err[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name in cuda_study.INSTANCES]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

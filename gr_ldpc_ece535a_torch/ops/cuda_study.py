@@ -1,0 +1,352 @@
+"""The sum-product kernel study: CUDA instances of ``csrc/bp_study.cu`` and
+their plain versions.
+
+The counterpart of the Pallas kernels of the TPU prototype study:
+
+  tools/ablate_pallas.py:27  make_sp_kernel(opts)  check-major tanh-rule SPA,
+                                                   with stubs and precisions
+  tools/proto_r3b.py:85      kernel(variant)       w-major SPA: phi, explog,
+                                                   and two frames a thread
+  tools/proto_r3b.py:192     kernel_abl(variant)   w-major SPA with the check
+                                                   step or aggregation stubbed
+  tools/proto_r4b.py:34      kernel(variant)       phi vs tanh-product check
+
+Each variant of those scripts maps onto one compile-time instance, named in
+``INSTANCES`` by its parts:
+
+  check  phi          the shipped tile kernel's check step (bp_wmajor.cu)
+         explog       phi as log1p(-e^-x) - log1p(e^-x) (proto_r3b._check_explog)
+         tanhprod_wm  tanh, exclusive prefix x suffix products, the clip to
+                      [-1 + 1e-12, 1 - 1e-12] (which is [-1, 1] in f32, so
+                      |T| = 1 gives +-inf, as in JAX), log((1+T)/(1-T))
+         tanhprod_cm  the same on the check-major layout, with ablate_pallas's
+                      stubs: no_tanh (t = 0.4x), no_excl (T = 0.9t), no_log
+                      (E = 1.9T); pads enter as t = 1 and leave as E * 0
+         stub         E = 0.9 M (proto_r3b's "nocheck")
+  agg    f32          each message exactly once, summed in f32 (HIGHEST, HIGH
+                      and the TPU's [hi; lo] split, whose hi + lo is the f32
+                      value)
+         bf16         what the TPU's single bf16 pass computes (precision
+                      DEFAULT, proto_r3b's "nosplit"): the operands of the
+                      aggregation rounded to bf16, summed in f32
+         none         no aggregation, with JAX's index arithmetic: w-major
+                      M = base + E of the slot itself ("nomm"); check-major
+                      L[j] = E[j] + deg*r, and slot e reads L[e mod N]
+                      ("no_matmul", which needs E = 3N)
+  fpt    1 or 2       frames a thread: 2 is the Hopper form of proto_r3b's
+                      "skew" variants (two independent chains for ILP), with
+                      per-frame arithmetic equal to fpt = 1
+
+Two loop forms. W-major (every check but tanhprod_cm): steps-1 full steps
+M = base + aggregation, a trailing check step, decision sum(E) + deg*r <= 0
+with the f32 sum, as the shipped tile kernel; pad slots keep PAD_BIG and
+are never read. Check-major (tanhprod_cm): each of ``steps`` iterations runs
+the check step, L = aggregation(E) + deg*r and M = ((LE - E) - rE) * mask
+(the dead last update skipped), decision L <= 0 (r <= 0 after no step).
+
+The plain versions round in the kernels' order, on rx's device. The wrapper
+runs the kernel on a CUDA tensor and the plain version on a CPU tensor; no
+path falls back from one to the other. Each launch adds one to
+``LAUNCHES[instance]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import re
+
+import torch
+
+from gr_ldpc_ece535a_tpu.codes import LdpcCode
+
+from .cuda_bp import (SMEM_MAX, WC_MAX, _append, _check_args,
+                      _check_sumproduct, _dev_tables, _exact_tables,
+                      _PHI_CLAMP, _running, _sign, _tree, _var_gather,
+                      _var_messages, tile_bytes)
+from .layout import PAD_BIG, wmajor_tables
+
+__all__ = ["StudySpec", "INSTANCES", "LAUNCHES", "STUDY_WR", "study_decode",
+           "study_plain", "study_supported", "study_smem_bytes",
+           "template_args", "kernel_index", "instance_of"]
+
+STUDY_WR = 6                   # the one row weight bp_study.cu instantiates
+LANES = 32                     # frames a block holds per frame of a thread
+# C++ enums of bp_study.cu, in declaration order
+CHECKS = ("phi", "explog", "tanhprod_wm", "tanhprod_cm", "stub")
+AGGS = ("f32", "bf16", "none")
+STUB_BITS = {"no_tanh": 1, "no_excl": 2, "no_log": 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class StudySpec:
+    check: str
+    agg: str = "f32"
+    fpt: int = 1
+    stubs: frozenset = frozenset()
+
+    @property
+    def check_major(self) -> bool:
+        return self.check == "tanhprod_cm"
+
+
+def _cm(agg="f32", *stubs):
+    return StudySpec("tanhprod_cm", agg, 1, frozenset(stubs))
+
+
+# instance name -> spec; the kernel is bp_study.cu's template of the spec's
+# template_args
+INSTANCES = {
+    "study_phi": StudySpec("phi"),
+    "study_phi_x2": StudySpec("phi", fpt=2),
+    "study_explog": StudySpec("explog"),
+    "study_explog_x2": StudySpec("explog", fpt=2),
+    "study_stub": StudySpec("stub"),
+    "study_phi_noagg": StudySpec("phi", "none"),
+    "study_phi_bf16": StudySpec("phi", "bf16"),
+    "study_tanhprod": StudySpec("tanhprod_wm"),
+    "study_cm": _cm(),
+    "study_cm_no_tanh": _cm("f32", "no_tanh"),
+    "study_cm_no_log": _cm("f32", "no_log"),
+    "study_cm_no_tanh_log": _cm("f32", "no_tanh", "no_log"),
+    "study_cm_no_excl": _cm("f32", "no_excl"),
+    "study_cm_no_matmul": _cm("none"),
+    "study_cm_bf16": _cm("bf16"),
+    "study_cm_all_off": _cm("none", "no_tanh", "no_excl", "no_log"),
+}
+# instance -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+LAUNCHES = dict.fromkeys(INSTANCES, 0)
+
+
+def template_args(spec: StudySpec) -> tuple[int, int, int, int]:
+    """(CHECK, AGG, FPT, STUBS) of the kernel template this spec names."""
+    return (CHECKS.index(spec.check), AGGS.index(spec.agg), spec.fpt,
+            sum(STUB_BITS[s] for s in spec.stubs))
+
+
+def instance_of(symbol: str) -> str | None:
+    """The instance whose kernel a mangled symbol names (as ptxas and
+    cuobjdump print it), or None."""
+    m = re.search(r"study_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", symbol)
+    if m is None:
+        return None
+    args = tuple(int(a) for a in m.groups())
+    return next((n for n, s in INSTANCES.items() if template_args(s) == args),
+                None)
+
+
+def _spec(instance: str) -> StudySpec:
+    if instance not in INSTANCES:
+        raise ValueError(f"unknown study instance {instance!r}; "
+                         f"one of {', '.join(INSTANCES)}")
+    return INSTANCES[instance]
+
+
+def study_smem_bytes(code: LdpcCode, instance: str) -> int:
+    """Shared memory of one block of this instance (bp_study_smem_bytes)."""
+    spec, t = _spec(instance), wmajor_tables(code)
+    frames = LANES * spec.fpt
+    # the check-major form also keeps L, N x (frames + 1) f32
+    extra = 4 * t.N * (frames + 1) if spec.check_major else 0
+    return tile_bytes(t.E, t.N, t.Wc, frames, flags=False) + extra
+
+
+def study_supported(code: LdpcCode, instance: str) -> bool:
+    """Whether the instance takes this code: row weight 6, column weight
+    <= 4, its tile in a block's shared memory, and E = 3N for no_matmul."""
+    spec, t = _spec(instance), wmajor_tables(code)
+    return (t.Wr == STUDY_WR and t.Wc <= WC_MAX
+            and study_smem_bytes(code, instance) <= SMEM_MAX
+            and not (spec.check_major and spec.agg == "none"
+                     and t.E != 3 * t.N))
+
+
+def _check_study(instance: str, rx, code: LdpcCode, steps: int) -> None:
+    _check_args(rx, code, steps)
+    if not study_supported(code, instance):
+        t = wmajor_tables(code)
+        raise ValueError(
+            f"code {code.name!r} (row weight {t.Wr}, column weight {t.Wc}, "
+            f"E={t.E}, N={t.N}) is not a code of the study kernels: they are "
+            f"instantiated for row weight {STUDY_WR} (block_32_64), column "
+            f"weight <= {WC_MAX}, and {instance} needs "
+            f"{study_smem_bytes(code, instance)} of at most {SMEM_MAX} bytes"
+            + (" and E = 3N" if _spec(instance).agg == "none"
+               and _spec(instance).check_major else ""))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _round(x: torch.Tensor, agg: str) -> torch.Tensor:
+    """An aggregation operand as the kernel reads it (bf16: rounded to
+    nearest even, __float2bfloat16_rn)."""
+    return x.to(torch.bfloat16).to(torch.float32) if agg == "bf16" else x
+
+
+def _excl_products(t: torch.Tensor) -> torch.Tensor:
+    """(B, n, W) -> prefix x suffix products excluding self, each running
+    from its end (pallas_bp._excl_prefix_prod, _excl_suffix_prod)."""
+    ones = torch.ones_like(t[:, :, 0])
+    pre = [ones] + _running(t[:, :, :-1], torch.mul)
+    suf = _running(t[:, :, 1:], torch.mul, reverse=True) + [ones]
+    return torch.stack(pre, 2) * torch.stack(suf, 2)
+
+
+def _check_explog(msg: torch.Tensor, d) -> torch.Tensor:
+    """proto_r3b._check_explog on (B, E) w-major messages."""
+    B, t = msg.shape[0], msg.view(msg.shape[0], d.t.Wr, d.t.M)
+    sg = _sign(t)
+    u = torch.exp(-torch.abs(t))
+    w = torch.clamp(torch.log1p(-u) - torch.log1p(u), min=-_PHI_CLAMP)
+    U = _tree(torch.add, w)
+    negP = -_tree(torch.mul, sg)
+    v = w - U
+    u2 = torch.exp(-v)
+    w2 = torch.log1p(-u2) - torch.log1p(u2)
+    return ((negP * sg) * w2).reshape(B, -1)
+
+
+def _check_tanhprod_wm(msg: torch.Tensor, d) -> torch.Tensor:
+    """proto_r4b's tanh-product check step on (B, E) w-major messages."""
+    B = msg.shape[0]
+    t = torch.tanh(msg.view(B, d.t.Wr, d.t.M) * 0.5).transpose(1, 2)
+    T = torch.clamp(_excl_products(t), -1.0, 1.0)   # f32(1 - 1e-12) == 1
+    return torch.log((1 + T) / (1 - T)).transpose(1, 2).reshape(B, -1)
+
+
+_WM_CHECKS = {"phi": _check_sumproduct, "explog": _check_explog,
+              "tanhprod_wm": _check_tanhprod_wm,
+              "stub": lambda msg, d: msg * 0.9}
+
+
+def _wm_plain(rx: torch.Tensor, code: LdpcCode, steps: int,
+              spec: StudySpec) -> torch.Tensor:
+    d = _dev_tables(code, rx.device)
+    r = -rx
+    base = (d.deg - 1.0) * r
+    degr = d.deg * r
+    pad = (d.slot_var == code.N)[None, :]
+    check = _WM_CHECKS[spec.check]
+    msg = _append(r, float(PAD_BIG))[:, d.slot_var]
+    for _ in range(steps - 1):
+        cm = check(msg, d)
+        if spec.agg == "none":         # base + the slot's own E
+            msg = torch.where(pad, float(PAD_BIG),
+                              _append(base, 0.0)[:, d.slot_var] + cm)
+        else:
+            msg = _var_messages(_var_gather(_round(cm, spec.agg), d)[1],
+                                base, d)
+    cm = check(msg, d) if steps > 0 else torch.zeros_like(msg)
+    return (_var_gather(cm, d)[0] + degr <= 0).to(torch.int8)
+
+
+def _cm_plain(rx: torch.Tensor, code: LdpcCode, steps: int,
+              spec: StudySpec) -> torch.Tensor:
+    d = _exact_tables(code, rx.device)
+    t = d.t
+    B, E = rx.shape[0], t.E
+    r = -rx
+    deg = d.vmask.sum(1).to(torch.float32)
+    maskf = d.cmask.reshape(-1).to(torch.float32)
+    rE = _append(_round(r, spec.agg), 0.0)[:, d.chk_var]    # pads read 0
+    msg, L = rE, r
+    for it in range(steps):
+        x = msg.view(B, t.M, t.Wr)
+        th = x * 0.4 if "no_tanh" in spec.stubs else torch.tanh(x * 0.5)
+        th = torch.where(d.cmask, th, 1.0)
+        T = th * 0.9 if "no_excl" in spec.stubs else _excl_products(th)
+        g = T * 1.9 if "no_log" in spec.stubs else torch.log((1 + T) / (1 - T))
+        Em = g.reshape(B, E) * maskf
+        if spec.agg == "none":
+            AE = Em[:, :t.N]
+        else:
+            Eg = torch.where(d.vmask,
+                             _append(_round(Em, spec.agg), 0.0)[:, d.var_cslots],
+                             0.0)
+            AE = torch.zeros_like(r)
+            for k in range(t.Wc):
+                AE = AE + Eg[:, :, k]
+        L = AE + deg * r
+        if it + 1 < steps:
+            if spec.agg == "none":
+                LE = L[:, torch.arange(E, device=rx.device) % t.N]
+            else:
+                LE = _append(_round(L, spec.agg), 0.0)[:, d.chk_var]
+            msg = ((LE - Em) - rE) * maskf
+    return (L <= 0).to(torch.int8)
+
+
+def study_plain(instance: str, rx: torch.Tensor, code: LdpcCode,
+                steps: int) -> torch.Tensor:
+    """Plain PyTorch version of a study instance, on rx's device."""
+    spec = _spec(instance)
+    _check_study(instance, rx, code, steps)
+    fn = _cm_plain if spec.check_major else _wm_plain
+    return fn(rx, code, steps, spec)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _study_lib():
+    """The built bp_study library; raises if it lacks an instance of
+    INSTANCES."""
+    from ._build import load_library
+
+    lib = load_library("bp_study")
+    missing = [n for n, s in INSTANCES.items()
+               if lib.bp_study_find(*template_args(s)) < 0]
+    if missing:
+        raise RuntimeError(f"bp_study.cu instantiates no kernel for {missing}")
+    return lib
+
+
+def kernel_index(instance: str) -> int:
+    """The library's index of an instance (bp_study_find)."""
+    return _study_lib().bp_study_find(*template_args(_spec(instance)))
+
+
+def _launch(instance: str, rx: torch.Tensor, code: LdpcCode,
+            steps: int) -> torch.Tensor:
+    """Launch a study instance on rx's CUDA device and current stream;
+    raises on any other tensor."""
+    spec = _spec(instance)
+    _check_study(instance, rx, code, steps)
+    if rx.device.type != "cuda":
+        raise ValueError(f"{instance}: the kernel runs on a CUDA tensor, "
+                         f"got one on {rx.device}")
+    out = torch.empty((rx.shape[0], code.N), dtype=torch.int8, device=rx.device)
+    if rx.shape[0] == 0:
+        return out
+    if spec.check_major:
+        d = _exact_tables(code, rx.device)
+        sv, vs = d.chk_var_i32, d.var_cslots_i32
+    else:
+        d = _dev_tables(code, rx.device)
+        sv, vs = d.slot_var_i32, d.var_slots_i32
+    lib = _study_lib()
+    with torch.cuda.device(rx.device):
+        stream = torch.cuda.current_stream(rx.device).cuda_stream
+        err = lib.bp_study_decode(
+            kernel_index(instance), rx.data_ptr(), out.data_ptr(),
+            rx.shape[0], sv.data_ptr(), vs.data_ptr(), d.t.M, d.t.N, d.t.Wc,
+            int(steps), stream)
+    if err:
+        raise RuntimeError(f"{instance} launch failed: "
+                           f"{lib.bp_study_error_string(err).decode()}")
+    LAUNCHES[instance] += 1
+    return out
+
+
+def study_decode(instance: str, rx: torch.Tensor, code: LdpcCode,
+                 steps: int) -> torch.Tensor:
+    """rx (B, N) f32 -> decisions (B, N) int8 through a study instance with
+    ``steps`` check steps: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    if rx.device.type == "cpu":
+        return study_plain(instance, rx, code, steps)
+    return _launch(instance, rx, code, steps)

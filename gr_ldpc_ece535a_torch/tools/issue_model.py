@@ -1,0 +1,231 @@
+"""What bounds the sum-product tile kernel on the card: its instruction mix,
+the SM clock it runs at, and the issue time the two imply.
+
+    python -m gr_ldpc_ece535a_torch.tools.issue_model     # needs a CUDA device
+
+  mix    nvcc builds a probe of one precise logf(tanhf(x/2)) with the port's
+         flags (ops/_build.py NVCC_FLAGS) into the git-ignored _build/;
+         cuobjdump -sass counts the instructions between its load and its
+         store, by pipe (PIPES). The study library's kernels are counted the
+         same way, each over its whole body (static counts).
+  clock  study_phi and study_stub timed by CUDA events (tools/_timing.py),
+         then each run back to back for a few seconds, timed by the host
+         clock, while nvidia-smi samples the SM clock and power draw.
+  model  study_phi's check step, the shipped tile kernel's, evaluates the
+         pair twice an edge and check step: at the study's shape
+         (block_32_64, 131,072 frames x 20 check steps) that is
+         2 x edges x frames x 20 / 32 warp executions. A pipe needs
+         count / RATES[pipe] issue slots a warp execution, spread over
+         SMs x 4 schedulers at the clock study_phi held. Printed beside
+         the measured cost of the check step's arithmetic, study_phi minus
+         study_stub back to back.
+
+A model from static counts and published rates, not a profiler reading
+(ncu does not run where the card is).
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import re
+import statistics
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["PIPES", "RATES", "sass_functions", "pair_region", "by_pipe",
+           "warp_executions", "issue_ms", "main"]
+
+# opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
+# takes FP32 add/multiply/multiply-add and integer multiply(-add); alu the
+# other integer, logic and select work and FP32 compare/min/max; xu the
+# special functions and conversions. Anything else (loads, stores,
+# branches, barriers) counts toward issue only.
+PIPES = {
+    **dict.fromkeys(("FFMA", "FADD", "FMUL", "IMAD", "IMUL"), "fma"),
+    **dict.fromkeys(("FSETP", "FSEL", "FMNMX", "FCHK", "ISETP", "IADD3",
+                     "LOP3", "SHF", "SEL", "PRMT", "LEA", "IABS", "IMNMX",
+                     "PLOP3", "MOV", "I2FP", "F2FP"), "alu"),
+    **dict.fromkeys(("MUFU", "F2I", "I2F", "F2F", "FRND"), "xu"),
+}
+# warp instructions a clock on one of an SM's 4 schedulers (CUDA C++
+# Programming Guide, arithmetic throughput for compute capability 9.0: FP32
+# add/multiply/fma 128 results a clock an SM, integer, logic and
+# compare/min/max 64, special functions and conversions 16)
+RATES = {"issue": 1.0, "fma": 1.0, "alu": 0.5, "xu": 0.125}
+SCHEDULERS = 4
+STEPS = 20                     # check steps of a study decode
+PROBE = r"""
+extern "C" __global__ void log_tanh_half_probe(const float* x, float* y,
+                                               int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = logf(tanhf(x[i] * 0.5f));
+}
+"""
+_FUNCTION = re.compile(r"\s+Function : (\S+)")
+_INSTR = re.compile(
+    r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_functions(text: str) -> dict[str, list[str]]:
+    """``cuobjdump -sass`` output -> {function: [opcode, ...]} in order."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if m := _FUNCTION.match(line):
+            cur = out.setdefault(m[1], [])
+        elif cur is not None and (m := _INSTR.match(line)):
+            cur.append(m[1])
+    return out
+
+
+def pair_region(opcodes: list[str]) -> list[str]:
+    """The opcodes strictly between a function's first global load and its
+    first global store: the probe's logf(tanhf(x/2))."""
+    start = opcodes.index("LDG")
+    return opcodes[start + 1:opcodes.index("STG", start)]
+
+
+def by_pipe(opcodes) -> dict[str, int]:
+    """Instruction counts a pipe, with "issue" the total."""
+    c = collections.Counter(PIPES.get(o, "other") for o in opcodes)
+    return {"issue": len(opcodes), **{p: c[p] for p in ("fma", "alu", "xu")}}
+
+
+def warp_executions(code, frames: int, steps: int) -> float:
+    """Warp executions of the pair in the w-major phi check step: two an
+    edge, frame and check step, 32 frames a warp."""
+    return 2 * int(code.H.sum()) * frames * steps / 32
+
+
+def issue_ms(counts: dict[str, int], executions: float, sms: int,
+             clock_mhz: float) -> dict[str, float]:
+    """Milliseconds each pipe needs for ``executions`` warp executions of
+    a sequence with ``counts`` instructions a pipe."""
+    slots_per_ms = sms * SCHEDULERS * clock_mhz * 1e3
+    return {p: counts[p] / RATES[p] * executions / slots_per_ms
+            for p in RATES}
+
+
+def _sass(lib: Path) -> str:
+    from ..ops._build import _nvcc
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def _probe_sass() -> str:
+    from ..ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = BUILD_DIR / "issue_probe.cu", BUILD_DIR / "libissue_probe.so"
+    src.write_text(PROBE)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                   capture_output=True, text=True, check=True, timeout=300)
+    return _sass(lib)
+
+
+def _smi(query: str) -> list[float]:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return [float(x) for x in out.splitlines()[0].split(",")]
+
+
+def _under_load(fn, seconds: float = 3.0) -> tuple[float, list[list[float]]]:
+    """Run fn back to back for ``seconds``: its milliseconds a call by the
+    host clock, and (clocks.sm, clocks.max.sm, power.draw) samples taken
+    meanwhile."""
+    fn()
+    torch.cuda.synchronize()
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(_smi("clocks.sm,clocks.max.sm,power.draw"))
+            time.sleep(0.2)
+
+    t = threading.Thread(target=sample)
+    t.start()
+    calls, t0 = 0, time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            calls += 50
+    finally:
+        elapsed = time.perf_counter() - t0
+        stop.set()
+        t.join()
+    return elapsed / calls * 1e3, samples[1:]   # the first may predate it
+
+
+def main() -> dict:
+    """Print the mix, the clock and the model at the study's shape; return
+    them as a dict."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("issue_model reads a CUDA device's code and clock; "
+                           "none found")
+    from ..ops import cuda_study
+    from ..ops._build import build
+    from ._timing import STUDY_FRAMES, study_inputs, time_decode
+
+    frames, steps = STUDY_FRAMES, STEPS
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[card] {card}", flush=True)
+
+    probe = next(ops for name, ops in sass_functions(_probe_sass()).items()
+                 if "log_tanh_half_probe" in name)
+    pair = pair_region(probe)
+    pair_pipes = by_pipe(pair)
+    print(f"[mix] one logf(tanhf(x/2)): {pair_pipes} | "
+          + " ".join(f"{o}:{n}" for o, n in
+                     collections.Counter(pair).most_common()), flush=True)
+    kernels = {}
+    for fn, ops in sass_functions(_sass(build()["bp_study"][0])).items():
+        if inst := cuda_study.instance_of(fn):
+            kernels[inst] = by_pipe(ops)
+    for name in cuda_study.INSTANCES:
+        print(f"[mix] {name} (static, whole kernel): {kernels[name]}",
+              flush=True)
+
+    code, rx = study_inputs("cuda", frames)
+    ms, loaded, clock = {}, {}, {}
+    for inst in ("study_phi", "study_stub"):
+        fn = functools.partial(cuda_study.study_decode, inst, rx, code, steps)
+        ms[inst] = time_decode(fn)
+        loaded[inst], samples = _under_load(fn)
+        clock[inst] = statistics.median(s[0] for s in samples)
+        print(f"[clock] {inst}: {ms[inst]:.4f} ms (CUDA events, median of "
+              f"20), {loaded[inst]:.4f} ms a call back to back; meanwhile "
+              f"clocks.sm median {clock[inst]} MHz, range "
+              f"{min(s[0] for s in samples)}-{max(s[0] for s in samples)} "
+              f"(max {samples[0][1]}), power.draw "
+              f"{min(s[2] for s in samples)}-{max(s[2] for s in samples)} W, "
+              f"{len(samples)} samples", flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    execs = warp_executions(code, frames, steps)
+    model = issue_ms(pair_pipes, execs, sms, clock["study_phi"])
+    check_ms = loaded["study_phi"] - loaded["study_stub"]
+    print(f"[model] {code.name} {frames} x {steps}: {execs:.4e} warp "
+          f"executions of the pair on {sms} SMs at {clock['study_phi']} MHz "
+          f"-> " + ", ".join(f"{p} {v:.4f} ms" for p, v in model.items()),
+          flush=True)
+    print(f"[model] the check step's arithmetic, study_phi - study_stub back "
+          f"to back: {check_ms:.4f} ms = {check_ms / model['issue']:.3f} x "
+          f"the pairs' issue time [{card}]", flush=True)
+    return {"card": card, "pair": pair_pipes, "kernels": kernels,
+            "clock_mhz": clock, "model_ms": model, "measured_ms": ms,
+            "loaded_ms": loaded}
+
+
+if __name__ == "__main__":
+    main()

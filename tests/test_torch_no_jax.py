@@ -39,7 +39,9 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"__init__.py", "entry.py", "cuda_bp.py", "decode.py",
             "layout.py", "_build.py", "sweep.py", "waterfall.py",
-            "ldpc_ber_sweep.py"} <= names
+            "ldpc_ber_sweep.py", "cuda_study.py", "_timing.py",
+            "ablate_pallas.py", "proto_r3b.py", "proto_r4b.py",
+            "issue_model.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))
