@@ -5,9 +5,9 @@
 
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
-  2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu and
-              csrc/bp_study.cu, in parallel, into gr_ldpc_ece535a_torch/_build/;
-              prints ptxas's summary
+  2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu,
+              csrc/bp_study.cu and csrc/bp_study_ms.cu, in parallel, into
+              gr_ldpc_ece535a_torch/_build/; prints ptxas's summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
               rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
               iterations, both methods x both modes x both forms, plus edge
@@ -19,7 +19,10 @@ Phases, each of which raises on a miss:
               impl="split" against the tile; every study instance at
               131,072 x 20 against its plain version, and the study variants
               whose arithmetic is the shipped tile kernel's (or base's, or
-              explog's) against it, 0 mismatching frames
+              explog's) against it, 0 mismatching frames; every min-sum study
+              instance likewise, study_ms_ref against the shipped precise
+              min-sum (0), and the bf16-aggregation instances' agreement with
+              it (>= 99%)
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -32,10 +35,14 @@ Phases, each of which raises on a miss:
                           "exact", on the forward's rx
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
-                          proto_r3b, proto_r4b) at 131,072 x 20, 4 dB; each
-                          times its variants' kernels and plain versions
+                          proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
+                          proto_r3) at 131,072 x 20, 4 dB; each times its
+                          variants' kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
-              the whole forward and of each sweep point; the study's table
+              the whole forward and of each sweep point; the studies' tables
+Each kernel's record carries its bound: the larger of its bytes (rx read
+once, decisions written once) over HBM_BYTES_S and its f32 operations
+(tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -88,6 +95,20 @@ STUDY_REPLACES = {
     **{f"study_cm{s}": "tools/ablate_pallas.py:27" for s in (
         "", "_no_tanh", "_no_log", "_no_tanh_log", "_no_excl", "_no_matmul",
         "_bf16", "_all_off")}}
+STUDY_MS_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study_ms.cu"
+# min-sum study instance -> the prototype kernel it stands for (study_ms_ref
+# is the shipped tile min-sum's arithmetic, which proto_r2 "current" computed
+# with bf16 products)
+STUDY_MS_REPLACES = {
+    "study_ms_ref": f"{_PALLAS}:438",
+    "study_ms_argmin": "tools/fast_kernel_proto.py:120",
+    **{f"study_ms_{v}": "tools/proto_r2.py:80" for v in (
+        "current", "stub_check", "stub_mm", "bits", "bf16", "int8", "split")},
+    "study_ms_hilo": "tools/proto_r3.py:78"}
+# the bf16-aggregation candidates: the fast contract against the shipped
+# precise min-sum, as the TPU's own fast min-sum kept it
+MS_FAST = ("study_ms_current", "study_ms_bits", "study_ms_argmin",
+           "study_ms_split", "study_ms_hilo")
 
 
 def log(*args) -> None:
@@ -120,20 +141,24 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code, make_ldpc
+    t_start = time.perf_counter()
+    from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
     from gr_ldpc_ece535a_torch.entry import EBN0_DB, entry
     from gr_ldpc_ece535a_torch.ops import (
         awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
         encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
-    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study
+    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study, cuda_study_ms
     from gr_ldpc_ece535a_torch.ops._build import build, load_library
     from gr_ldpc_ece535a_torch.ops.layout import (
         check_major_tables, edge_slots, wmajor_tables)
     from gr_ldpc_ece535a_torch.parallel import make_sweep_step
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
-    from gr_ldpc_ece535a_torch.tools import ablate_pallas, proto_r3b, proto_r4b
-    from gr_ldpc_ece535a_torch.tools._timing import make_inputs, time_decode
+    from gr_ldpc_ece535a_torch.tools import (ablate_pallas, fast_kernel_proto,
+                                             proto_r2, proto_r3, proto_r3b,
+                                             proto_r4b)
+    from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
+                                                     time_decode)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -155,7 +180,8 @@ def main() -> int:
         for line in build_log.splitlines() + ["Compiling (end)"]:
             kernel = re.search(
                 r"(bp_(?:exact_)?kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
-            study = cuda_study.instance_of(line)
+            study = (cuda_study.instance_of(line)
+                     or cuda_study_ms.instance_of(line))
             if "Compiling" in line:
                 if name:
                     log(f"    {name}: {'; '.join(notes)}")
@@ -171,6 +197,7 @@ def main() -> int:
                 notes.append(line.split(":", 1)[-1].strip())
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
     slib = cuda_study._study_lib()    # checks its instance table
+    mlib = cuda_study_ms._study_ms_lib()
     gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
            for m, n in ((200, 400), (256, 512), (320, 640))}
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
@@ -188,6 +215,14 @@ def main() -> int:
                 got, want = (slib.bp_study_smem_bytes(
                                  cuda_study.kernel_index(n), t.M, t.N, t.Wc),
                              cuda_study.study_smem_bytes(c, n))
+                if got != want:
+                    raise AssertionError(
+                        f"smem plan of {n} differs for {c.name}: {got} {want}")
+        for n in cuda_study_ms.INSTANCES:
+            if cuda_study_ms.study_ms_supported(c, n):
+                got, want = (mlib.bp_study_ms_smem_bytes(
+                                 cuda_study_ms.kernel_index(n), t.M, t.N, t.Wc),
+                             cuda_study_ms.study_ms_smem_bytes(c, n))
                 if got != want:
                     raise AssertionError(
                         f"smem plan of {n} differs for {c.name}: {got} {want}")
@@ -247,7 +282,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return vk, vp
 
-    max_err = dict.fromkeys((*cuda_bp.KERNELS, *cuda_study.INSTANCES), 0)
+    max_err = dict.fromkeys((*cuda_bp.KERNELS, *cuda_study.INSTANCES,
+                             *cuda_study_ms.INSTANCES), 0)
 
     # -- 3. kernels vs plain versions ----------------------------------------
     code = get_code("block_32_64")
@@ -404,6 +440,28 @@ def main() -> int:
                 proto_r3b.run(one, rx4, code, ITERATIONS), code, False,
                 identical=True)
     del shipped, runs
+    # the min-sum study: each instance against its plain version (0), the
+    # yardstick against the shipped precise min-sum (0), and each instance's
+    # agreement with it: the bf16-aggregation candidates keep the fast
+    # contract (>= 99%), the others are reported
+    shipped = kernels["minsum"](rx4, code, ITERATIONS, mode="precise")
+    ms_agree = {}
+    for name in cuda_study_ms.INSTANCES:
+        vk = cuda_study_ms.study_ms_decode(name, rx4, code, ITERATIONS)
+        vp = cuda_study_ms.study_ms_plain(name, rx4, code, ITERATIONS)
+        torch.cuda.synchronize()
+        max_err[name] = compare(f"{name} vs plain {shape}", vk, vp, code,
+                                False, identical=True)
+        ms_agree[name] = float((vk == shipped).all(1).float().mean())
+        log(f"[kernels] {name} vs the shipped precise min-sum {shape}: "
+            f"frame agreement {ms_agree[name]:.5f}")
+        if name == "study_ms_ref":
+            compare(f"{name} vs the shipped precise min-sum {shape}", vk,
+                    shipped, code, False, identical=True)
+        elif name in MS_FAST and not ms_agree[name] >= FIXED_MIN_AGREE:
+            raise AssertionError(f"{name}: agreement {ms_agree[name]} with "
+                                 f"the shipped precise min-sum")
+    del shipped, vk, vp
 
     # -- 4. paths -----------------------------------------------------------
     def drive(path, fn, want, launches=cuda_bp.LAUNCHES):
@@ -510,6 +568,26 @@ def main() -> int:
         if row["tag"].startswith("spa-") and not row["agree"] >= FIXED_MIN_AGREE:
             raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
                                  f"{row['agree']} with the shipped kernel")
+    # the min-sum study scripts' main: each must launch all its instances;
+    # the bf16-aggregation candidates keep the fast contract against their
+    # script's reference (the shipped precise min-sum; fast_kernel_proto:
+    # the f32 path on its first 4,096 frames)
+    ms_rows, ms_counts = [], dict.fromkeys(cuda_study_ms.INSTANCES, 0)
+    for tool in (fast_kernel_proto, proto_r2, proto_r3):
+        want = set(tool.VARIANTS.values())
+        if tool is proto_r2:
+            want.add(proto_r2.REF)
+        rows, counts = drive(
+            tool.__name__.rsplit(".", 1)[1],
+            functools.partial(tool.main, "cuda", N_FRAMES, ITERATIONS), want,
+            cuda_study_ms.LAUNCHES)
+        ms_rows += rows
+        for name, n in counts.items():
+            ms_counts[name] += n
+    for row in ms_rows:
+        if row["instance"] in MS_FAST and not row["agree"] >= FIXED_MIN_AGREE:
+            raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
+                                 f"{row['agree']} with its reference")
 
     # -- 5. times ---------------------------------------------------------------
     log(f"[times] before: {clock_line()}")
@@ -626,23 +704,52 @@ def main() -> int:
             f"{row['ms'] / first:8.3f} {agree}")
     for row in study_rows:    # each instance's time: its first variant's row
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
+    # the min-sum study's table, each row against study_ms_ref (the shipped
+    # tile min-sum's arithmetic); "shipped" is phase 3's agreement with the
+    # shipped precise min-sum, "agree" the script's own reference's
+    ref_ms = next(r["ms"] for r in ms_rows if r["instance"] == "study_ms_ref")
+    log(f"[study-ms] block_32_64 {shape}, CUDA events, median of 20 [{card}]")
+    log(f"    {'script':9s} {'variant':10s} {'instance':19s} {'kernel ms':>9s} "
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs ref':>6s} {'shipped':>7s} "
+        f"agree")
+    for row in ms_rows:
+        log(f"    {row['tag']:9s} {row['variant']:10s} {row['instance']:19s} "
+            f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
+            f"{row['ms'] / ref_ms:6.3f} {ms_agree[row['instance']]:7.5f} "
+            f"{row['agree']:.5f}")
+    for row in ms_rows:
+        times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""
         return name[name.index("_", 3):] if name.count("_") == 2 else ""
 
+    def kernel_record(name, source, replaces, launches, method, c=code,
+                      frames=N_FRAMES):
+        """One kernel's entry, its bound at the shape it was timed."""
+        bound, by = bound_ms(c, frames, ITERATIONS, method)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_err[name], "ms": times[name][0],
+                "plain_ms": times[name][1], "bound_ms": bound,
+                "bound_by": by,
+                "library_ms": None}    # no single PyTorch call decodes BP
+
     record = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": SOURCES[route_of(name)], "replaces": REPLACES[name],
-         "launches": path_counts[route_of(name)][name],
-         "max_abs_err": max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+        kernel_record(name, SOURCES[route_of(name)], REPLACES[name],
+                      path_counts[route_of(name)][name],
+                      "sumproduct" if "sumproduct" in name else "minsum",
+                      *((big, LARGE_FRAMES) if route_of(name) == "_large"
+                        else ()))
         for name in cuda_bp.KERNELS] + [
-        {"name": name, "route": "cuda", "source": STUDY_SOURCE,
-         "replaces": STUDY_REPLACES[name], "launches": study_counts[name],
-         "max_abs_err": max_err[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in cuda_study.INSTANCES]}
+        kernel_record(name, STUDY_SOURCE, STUDY_REPLACES[name],
+                      study_counts[name], "sumproduct")
+        for name in cuda_study.INSTANCES] + [
+        kernel_record(name, STUDY_MS_SOURCE, STUDY_MS_REPLACES[name],
+                      ms_counts[name], "minsum")
+        for name in cuda_study_ms.INSTANCES]}
+    log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s, the "
+        f"build included")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

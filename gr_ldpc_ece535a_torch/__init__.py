@@ -2,10 +2,11 @@
 
 The port of ``gr_ldpc_ece535a_tpu`` (JAX on a TPU) to PyTorch and CUDA on an
 NVIDIA H100. The JAX package stays the reference each part is tested
-against; the code registry is shared with it, not copied
-(``gr_ldpc_ece535a_tpu.codes`` is numpy only).
+against; the port imports nothing of it, and keeps its own copy of the
+numpy-only code registry (``codes/``).
 
 Layout:
+  codes/     the code registry: parity-check matrices, GF(2) preprocessing
   ops/       bits, encode, channel, plain decoders, CUDA BP kernel wrappers
   csrc/      hand-written CUDA kernels, built with nvcc at first use
   parallel/  the Monte-Carlo sweep step
@@ -16,8 +17,9 @@ Layout:
 
 __version__ = "0.1.0"
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code, list_codes
+from .codes import LdpcCode, get_code, get_sim_dsource, list_codes, make_ldpc
 
 from . import ops
 
-__all__ = ["LdpcCode", "get_code", "list_codes", "ops", "__version__"]
+__all__ = ["LdpcCode", "get_code", "list_codes", "make_ldpc",
+           "get_sim_dsource", "ops", "__version__"]

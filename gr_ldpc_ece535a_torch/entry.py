@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code
+from .codes import LdpcCode, get_code
 
 from .ops import awgn, encode_to_symbols, make_decoder, pack_bits
 
@@ -29,13 +29,14 @@ def receive(rx: torch.Tensor, code: LdpcCode) -> torch.Tensor:
     return pack_bits(decode(rx)[:, code.M:])
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """Returns ``(forward, (generator, data))`` for the flagship step.
 
-    ``forward(generator, data_bytes)`` maps (B, K/8) uint8 on ``device`` to
-    the decoded (B, K/8) uint8 after AWGN at EBN0_DB; ``generator`` is a
-    seeded ``torch.Generator`` on the same device and ``data`` 256 frames
-    of bytes, as in the JAX package's entry.
+    ``device`` is the card unless the caller passes ``"cpu"`` (the plain
+    versions). ``forward(generator, data_bytes)`` maps (B, K/8) uint8 on
+    ``device`` to the decoded (B, K/8) uint8 after AWGN at EBN0_DB;
+    ``generator`` is a seeded ``torch.Generator`` on the same device and
+    ``data`` 256 frames of bytes, as in the JAX package's entry.
     """
     device = torch.device(device)
     code = get_code(CODE_NAME)

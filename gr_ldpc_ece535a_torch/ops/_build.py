@@ -21,7 +21,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("bp_wmajor", "bp_exact", "bp_study")}
+           for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms")}
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as it does in the plain PyTorch versions. No --use_fast_math: the
@@ -102,17 +102,18 @@ def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
         fns = {"bp_decode": decode_args, "bp_decode_large": decode_args,
                "bp_smem_bytes": [i] * 4, "bp_large_smem_bytes": [i] * 4,
                "bp_error_string": [i]}
-    elif name == "bp_study":
-        fns = {"bp_study_decode": [
+    elif name in ("bp_study", "bp_study_ms"):
+        fns = {f"{name}_decode": [
                    i,           # instance (bp_study_find's index)
                    p, p, i,     # rx (B, N) f32, out (B, N) int8, B
                    p, p,        # slot_var (6M,), var_slots (N, Wc) int32
                    i, i, i,     # M, N, Wc
                    i,           # check steps
                    p],          # cudaStream_t
-               "bp_study_find": [i] * 4,   # check, agg, fpt, stubs
-               "bp_study_smem_bytes": [i] * 4,
-               "bp_study_error_string": [i]}
+               # bp_study: check, agg, fpt, stubs; bp_study_ms: check, var, rnd
+               f"{name}_find": [i] * (4 if name == "bp_study" else 3),
+               f"{name}_smem_bytes": [i] * 4,
+               f"{name}_error_string": [i]}
     else:
         fns = {"bp_exact_decode": [
                    i,           # sumproduct (1) or min-sum (0)

@@ -56,7 +56,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 from .layout import PAD_BIG, check_major_tables, edge_slots, wmajor_tables
 
@@ -233,11 +233,13 @@ def _tree(op, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _excl_min(beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _excl_min(beta: torch.Tensor,
+              fill=torch.finfo(torch.float32).max) -> tuple[torch.Tensor,
+                                                           torch.Tensor]:
     """(min over the other slots, min over all) along dim 1 by exclusive
-    prefix/suffix passes (pallas_bp._excl_min_axis0)."""
+    prefix/suffix passes (pallas_bp._excl_min_axis0), ``fill`` at the ends."""
     W = beta.shape[1]
-    fill = torch.full_like(beta[:, :1], torch.finfo(torch.float32).max)
+    fill = torch.full_like(beta[:, :1], fill)
     pre, acc = [fill], beta[:, 0:1]
     for w in range(1, W):
         pre.append(acc)

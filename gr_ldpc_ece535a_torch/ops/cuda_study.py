@@ -58,7 +58,7 @@ import re
 
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 from .cuda_bp import (SMEM_MAX, WC_MAX, _append, _check_args,
                       _check_sumproduct, _dev_tables, _exact_tables,

@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 from .layout import edge_layout, edge_slots
 

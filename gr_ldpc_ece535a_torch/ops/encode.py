@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 from .bits import unpack_bits
 

@@ -26,7 +26,7 @@ import functools
 
 import numpy as np
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 __all__ = ["EdgeLayout", "edge_layout", "edge_slots", "WmajorTables",
            "wmajor_tables", "tables_from_jax", "tables_from_jax_split",

@@ -23,7 +23,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode
+from ..codes import LdpcCode
 
 from ..ops import awgn, bpsk_map, encode_bits, make_decoder, syndrome_weight
 from ..ops.cuda_bp import cuda_decode_minsum, cuda_decode_sumproduct, supported

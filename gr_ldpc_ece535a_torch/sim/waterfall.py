@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code
+from ..codes import LdpcCode, get_code
 
 from ..parallel import make_sweep_step
 

@@ -15,17 +15,30 @@ import statistics
 
 import torch
 
-from gr_ldpc_ece535a_tpu.codes import LdpcCode, get_code
+from ..codes import LdpcCode, get_code
 
 from ..ops import awgn, bpsk_map, encode_bits
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "TIMED_LAUNCHES", "EBN0_DB", "STUDY_FRAMES"]
+           "bound_ms", "minsum_kind", "TIMED_LAUNCHES", "EBN0_DB", "STUDY_FRAMES",
+           "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE"]
 
 TIMED_LAUNCHES = 20
 WARMUP = 3
 EBN0_DB = 4.0                  # bench.py's Eb/N0
 STUDY_FRAMES = 1 << 17         # the prototypes' batch
+# H100 SXM, NVIDIA's data sheet: HBM3 bytes a second, and f32 operations a
+# second outside the tensor cores (BP has no matrix product to give them)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# f32 operations an edge and iteration that a decoder cannot skip, each
+# counted as one (a tanh or a log too, so the bound is generous):
+#   min-sum      |x|, sign, the row's sign product, the running minimum from
+#                each end and their combination, two products (check); the
+#                variable's sum and the exclusion (variable): 10
+#   sum-product  |x|, sign, tanh, log, clamp, the row sum, the sign product,
+#                the exclusion, tanh, log, two products (check); 2 (variable)
+OPS_PER_EDGE = {"minsum": 10, "sumproduct": 14}
 
 
 def make_inputs(code: LdpcCode, batch: int, generator: torch.Generator,
@@ -56,6 +69,31 @@ def time_decode(fn, *args) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def bound_ms(code: LdpcCode, frames: int, iterations: int,
+             method: str) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations") the card could take to
+    decode ``frames`` of ``code`` for ``iterations`` fixed iterations: rx
+    read once (f32) and the decisions written once (int8) over HBM_BYTES_S,
+    against OPS_PER_EDGE[method] an edge and iteration over F32_OPS_S."""
+    by_bytes = frames * code.N * (4 + 1) / HBM_BYTES_S * 1e3
+    by_ops = (OPS_PER_EDGE[method] * int(code.H.sum()) * frames * iterations
+              / F32_OPS_S * 1e3)
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def minsum_kind(kind: str) -> None:
+    """Raise unless ``kind`` is the min-sum kind of a min-sum study script:
+    the sum-product prototypes of those scripts are not ported yet."""
+    if kind in ("sp", "sumprod"):
+        raise NotImplementedError(
+            "the sum-product prototypes are not ported yet: they are the next "
+            "slice of ROADMAP queue 2 item 4 (the SPA aggregation-precision "
+            "study)")
+    if kind not in ("ms", "minsum"):
+        raise ValueError(f"unknown kind {kind!r}; use minsum")
+
+
 def study_inputs(device, frames: int) -> tuple[LdpcCode, torch.Tensor]:
     """The prototypes' code, block_32_64, and ``frames`` rx at 4 dB drawn
     from seed 0 on ``device``."""
@@ -71,14 +109,16 @@ def study_row(tag: str, variant: str, instance: str, run, plain,
     """Decode rx through one variant, time it and its plain version on the
     card, print one line and return it as a dict. ``run(variant, rx, code,
     iterations)`` is the tool's function; ``plain(rx)`` the plain version.
-    A failing variant raises."""
+    ``reference`` may decide only the first frames of rx: the agreement is
+    over those. A failing variant raises."""
     out = run(variant, rx, code, iterations)
     row = {"tag": tag, "variant": variant, "instance": instance,
            "frames": rx.shape[0], "iterations": iterations,
            "device": rx.device.type, "ms": None, "plain_ms": None,
            "gbit_s": None, "agree": None}
     if reference is not None:
-        row["agree"] = float((out == reference).all(1).float().mean())
+        row["agree"] = float((out[:reference.shape[0]] == reference)
+                             .all(1).float().mean())
     if rx.device.type == "cuda":
         row["ms"] = time_decode(run, variant, rx, code, iterations)
         row["plain_ms"] = time_decode(plain, rx)

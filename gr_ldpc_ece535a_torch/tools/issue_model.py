@@ -20,6 +20,14 @@ the SM clock it runs at, and the issue time the two imply.
          the measured cost of the check step's arithmetic, study_phi minus
          study_stub back to back.
 
+The min-sum tile kernel has no transcendental, so its model counts
+shared-memory wavefronts instead (minsum_wavefronts): every message, table,
+-rx and decision access of the w-major tile min-sum (bp_study_ms.cu's
+study_ms_ref), one 128-byte wavefront a warp access (the layouts are
+conflict-free; a table entry is one address for the warp), at one wavefront
+a clock an SM. Printed beside study_ms_ref's and its stubs' times and the
+study_ms kernels' static mix with their LDS/STS/BAR counts.
+
 A model from static counts and published rates, not a profiler reading
 (ncu does not run where the card is).
 """
@@ -38,7 +46,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["PIPES", "RATES", "sass_functions", "pair_region", "by_pipe",
-           "warp_executions", "issue_ms", "main"]
+           "warp_executions", "issue_ms", "minsum_wavefronts", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
 # takes FP32 add/multiply/multiply-add and integer multiply(-add); alu the
@@ -99,6 +107,23 @@ def warp_executions(code, frames: int, steps: int) -> float:
     """Warp executions of the pair in the w-major phi check step: two an
     edge, frame and check step, 32 frames a warp."""
     return 2 * int(code.H.sum()) * frames * steps / 32
+
+
+def minsum_wavefronts(code, frames: int, steps: int) -> float:
+    """Shared-memory wavefronts of the w-major tile min-sum (32 frames a
+    warp): a check step reads E table entries and the edges' messages and
+    writes them back; a variable step reads N -rx, N*Wc table entries and
+    the edges' messages and writes them; the decision reads as a variable
+    step does and writes N decisions. ``steps`` check steps, one variable
+    step fewer, one decision."""
+    H = code.H
+    E, N = int(H.sum(1).max()) * code.M, code.N
+    Wc, edges = int(H.sum(0).max()), int(H.sum())
+    check = E + 2 * edges
+    var = N + N * Wc + 2 * edges
+    decide = N + N * Wc + edges + N
+    per_warp = steps * check + max(steps - 1, 0) * var + decide
+    return per_warp * frames / 32
 
 
 def issue_ms(counts: dict[str, int], executions: float, sms: int,
@@ -222,9 +247,39 @@ def main() -> dict:
     print(f"[model] the check step's arithmetic, study_phi - study_stub back "
           f"to back: {check_ms:.4f} ms = {check_ms / model['issue']:.3f} x "
           f"the pairs' issue time [{card}]", flush=True)
+
+    # the min-sum study: static mix, times, and the wavefront model
+    from ..ops import cuda_study_ms
+    ms_kernels = {}
+    for fn, ops in sass_functions(_sass(build()["bp_study_ms"][0])).items():
+        if inst := cuda_study_ms.instance_of(fn):
+            c = collections.Counter(ops)
+            ms_kernels[inst] = {**by_pipe(ops), **{o: c[o] for o in
+                                                  ("LDS", "STS", "BAR")}}
+    for name in cuda_study_ms.INSTANCES:
+        print(f"[mix] {name} (static, whole kernel): {ms_kernels[name]}",
+              flush=True)
+    for inst in ("study_ms_ref", "study_ms_stub_check", "study_ms_stub_mm"):
+        fn = functools.partial(cuda_study_ms.study_ms_decode, inst, rx, code,
+                               steps)
+        ms[inst] = time_decode(fn)
+        loaded[inst], samples = _under_load(fn)
+        clock[inst] = statistics.median(s[0] for s in samples)
+        print(f"[clock] {inst}: {ms[inst]:.4f} ms (CUDA events, median of "
+              f"20), {loaded[inst]:.4f} ms a call back to back; clocks.sm "
+              f"median {clock[inst]} MHz, power.draw "
+              f"{min(s[2] for s in samples)}-{max(s[2] for s in samples)} W",
+              flush=True)
+    waves = minsum_wavefronts(code, frames, steps)
+    wave_ms = waves / (sms * clock["study_ms_ref"] * 1e3)
+    print(f"[model] min-sum {code.name} {frames} x {steps}: {waves:.4e} "
+          f"shared-memory wavefronts on {sms} SMs at {clock['study_ms_ref']} "
+          f"MHz -> {wave_ms:.4f} ms = {wave_ms / loaded['study_ms_ref']:.3f} "
+          f"of study_ms_ref back to back [{card}]", flush=True)
     return {"card": card, "pair": pair_pipes, "kernels": kernels,
             "clock_mhz": clock, "model_ms": model, "measured_ms": ms,
-            "loaded_ms": loaded}
+            "loaded_ms": loaded, "ms_kernels": ms_kernels,
+            "minsum_wavefront_ms": wave_ms}
 
 
 if __name__ == "__main__":

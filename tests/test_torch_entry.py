@@ -4,6 +4,7 @@ The same bytes and the same numpy noise go through both packages' slice
 (encode -> BPSK -> AWGN at 5 dB -> 20-iteration sum-product -> pack).
 """
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -12,6 +13,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gr_ldpc_ece535a_tpu import ops as jops
@@ -59,6 +61,15 @@ def test_entry_runs_on_cpu():
     assert cuda_bp.LAUNCHES == before  # plain version
     again = entry(device="cpu")
     assert torch.equal(again[0](*again[1]), out)   # seeded generator
+
+
+def test_entry_defaults_to_the_card():
+    """entry() with no argument builds on cuda; without a card it raises
+    instead of falling back to the CPU."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            entry()
 
 
 def _run_smoke(cwd):
