@@ -19,10 +19,13 @@ Phases, each of which raises on a miss:
               impl="split" against the tile; every study instance at
               131,072 x 20 against its plain version, and the study variants
               whose arithmetic is the shipped tile kernel's (or base's, or
-              explog's) against it, 0 mismatching frames; every min-sum study
-              instance likewise, study_ms_ref against the shipped precise
-              min-sum (0), and the bf16-aggregation instances' agreement with
-              it (>= 99%)
+              explog's) against it, 0 mismatching frames; the SPA
+              aggregation-precision instances also at 0 and 1 step and on a
+              saturating rx (0), and their agreement with the shipped precise
+              SPA (>= 99% for the bf16 and hi/lo phi forms); every min-sum
+              study instance likewise, study_ms_ref against the shipped
+              precise min-sum (0), and the bf16-aggregation instances'
+              agreement with it (>= 99%)
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -36,10 +39,13 @@ Phases, each of which raises on a miss:
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
-                          proto_r3) at 131,072 x 20, 4 dB; each times its
-                          variants' kernels and plain versions
+                          proto_r3 and its main_v2, each of the last three
+                          with its sum-product and min-sum kinds) at
+                          131,072 x 20, 4 dB; each times its variants'
+                          kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
               the whole forward and of each sweep point; the studies' tables
+              (the SPA aggregation-precision rows as ratios to study_phi)
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed.
@@ -94,7 +100,19 @@ STUDY_REPLACES = {
     "study_tanhprod": "tools/proto_r4b.py:34",
     **{f"study_cm{s}": "tools/ablate_pallas.py:27" for s in (
         "", "_no_tanh", "_no_log", "_no_tanh_log", "_no_excl", "_no_matmul",
-        "_bf16", "_all_off")}}
+        "_bf16", "_all_off")},
+    "study_sp_split": "tools/fast_kernel_proto.py:77",
+    "study_phi_bf16all": "tools/proto_r2.py:238",
+    "study_psprod": "tools/proto_r2.py:238",
+    "study_phi_hilo": "tools/proto_r3.py:110",
+    "study_phi_hilo2": "tools/proto_r3.py:225",
+    "study_psprod1p": "tools/proto_r3.py:225"}
+# the SPA aggregation-precision instances (fast_kernel_proto, proto_r2 and
+# proto_r3's sum-product kernels); the bf16 and hi/lo phi forms keep the fast
+# contract against the shipped precise SPA, the others are reported
+SP_NEW = ("study_sp_split", "study_phi_bf16all", "study_psprod",
+          "study_phi_hilo", "study_phi_hilo2", "study_psprod1p")
+SP_FAST = ("study_phi_bf16all", "study_phi_hilo", "study_phi_hilo2")
 STUDY_MS_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study_ms.cu"
 # min-sum study instance -> the prototype kernel it stands for (study_ms_ref
 # is the shipped tile min-sum's arithmetic, which proto_r2 "current" computed
@@ -439,6 +457,25 @@ def main() -> int:
                 proto_r3b.run(two, rx4, code, ITERATIONS),
                 proto_r3b.run(one, rx4, code, ITERATIONS), code, False,
                 identical=True)
+    # the aggregation-precision instances: 0 and 1 step, and a saturating rx
+    # (inf and NaN must pass through kernel and plain version alike), 0
+    # mismatching frames; then each one's agreement with the shipped precise
+    # SPA on rx4
+    sp_agree = {}
+    for name in SP_NEW:
+        for tag, rx, steps in (("iterations 0", rxi, 0), ("iterations 1", rxi, 1),
+                               ("saturating rx (+-30)", sat, ITERATIONS)):
+            compare(f"{name} vs plain {tag}",
+                    cuda_study.study_decode(name, rx, code, steps),
+                    cuda_study.study_plain(name, rx, code, steps), code,
+                    False, identical=True)
+        sp_agree[name] = float((cuda_study.study_decode(
+            name, rx4, code, ITERATIONS) == shipped).all(1).float().mean())
+        log(f"[kernels] {name} vs the shipped precise SPA {shape}: frame "
+            f"agreement {sp_agree[name]:.5f}")
+        if name in SP_FAST and not sp_agree[name] >= FIXED_MIN_AGREE:
+            raise AssertionError(f"{name}: agreement {sp_agree[name]} with "
+                                 f"the shipped precise SPA")
     del shipped, runs
     # the min-sum study: each instance against its plain version (0), the
     # yardstick against the shipped precise min-sum (0), and each instance's
@@ -464,11 +501,12 @@ def main() -> int:
     del shipped, vk, vp
 
     # -- 4. paths -----------------------------------------------------------
-    def drive(path, fn, want, launches=cuda_bp.LAUNCHES):
-        launches.update(dict.fromkeys(launches, 0))
+    def drive(path, fn, want, launches=(cuda_bp.LAUNCHES,)):
+        for counter in launches:
+            counter.update(dict.fromkeys(counter, 0))
         out = fn()
         torch.cuda.synchronize()
-        counts = dict(launches)
+        counts = {k: n for counter in launches for k, n in counter.items()}
         log(f"[{path}] launches during the path: {counts}")
         for name in want:
             if counts[name] < 1:
@@ -560,7 +598,7 @@ def main() -> int:
         rows, counts = drive(
             tool.__name__.rsplit(".", 1)[1],
             functools.partial(tool.main, "cuda", N_FRAMES, ITERATIONS), want,
-            cuda_study.LAUNCHES)
+            (cuda_study.LAUNCHES,))
         study_rows += rows
         for name, n in counts.items():
             study_counts[name] += n
@@ -568,24 +606,40 @@ def main() -> int:
         if row["tag"].startswith("spa-") and not row["agree"] >= FIXED_MIN_AGREE:
             raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
                                  f"{row['agree']} with the shipped kernel")
-    # the min-sum study scripts' main: each must launch all its instances;
-    # the bf16-aggregation candidates keep the fast contract against their
-    # script's reference (the shipped precise min-sum; fast_kernel_proto:
-    # the f32 path on its first 4,096 frames)
-    ms_rows, ms_counts = [], dict.fromkeys(cuda_study_ms.INSTANCES, 0)
-    for tool in (fast_kernel_proto, proto_r2, proto_r3):
-        want = set(tool.VARIANTS.values())
+    # the main() of fast_kernel_proto, proto_r2 and proto_r3 (and its
+    # main_v2), each with its sum-product and min-sum kinds: each must launch
+    # every instance it names; the min-sum bf16-aggregation candidates keep
+    # the fast contract against their script's reference (the shipped
+    # precise min-sum; fast_kernel_proto: the f32 path on its first 4,096
+    # frames), and the SPA ones against the shipped precise SPA
+    ms_rows, sp_rows = [], []
+    ms_counts = dict.fromkeys(cuda_study_ms.INSTANCES, 0)
+    for tool, fn in ((fast_kernel_proto, "main"), (proto_r2, "main"),
+                     (proto_r3, "main"), (proto_r3, "main_v2")):
+        if fn == "main_v2":
+            want = set(proto_r3.V2_VARIANTS.values())
+        elif tool is fast_kernel_proto:
+            want = set(tool.VARIANTS.values())
+        else:
+            want = {i for v in tool.VARIANTS.values() for i in v.values()}
         if tool is proto_r2:
-            want.add(proto_r2.REF)
+            want |= set(proto_r2.REF.values())
+        name = tool.__name__.rsplit(".", 1)[1]
         rows, counts = drive(
-            tool.__name__.rsplit(".", 1)[1],
-            functools.partial(tool.main, "cuda", N_FRAMES, ITERATIONS), want,
-            cuda_study_ms.LAUNCHES)
-        ms_rows += rows
-        for name, n in counts.items():
-            ms_counts[name] += n
+            name if fn == "main" else f"{name}.{fn}",
+            functools.partial(getattr(tool, fn), "cuda", N_FRAMES, ITERATIONS),
+            want, (cuda_study.LAUNCHES, cuda_study_ms.LAUNCHES))
+        ms_rows += [r for r in rows if r["tag"].startswith("ms-")]
+        sp_rows += [r for r in rows if r["tag"].startswith("sp-")]
+        for inst, n in counts.items():
+            (study_counts if inst in study_counts else ms_counts)[inst] += n
     for row in ms_rows:
         if row["instance"] in MS_FAST and not row["agree"] >= FIXED_MIN_AGREE:
+            raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
+                                 f"{row['agree']} with its reference")
+    for row in sp_rows:
+        if ((row["instance"] in SP_FAST or row["tag"] == "sp-ref")
+                and not row["agree"] >= FIXED_MIN_AGREE):
             raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
                                  f"{row['agree']} with its reference")
 
@@ -691,7 +745,8 @@ def main() -> int:
                 for e, s in zip(r.ebn0_db, r.point_wall_s)) + f" [{card}]")
     # the study's table, each variant against its script's first (the
     # shipped arithmetic: ablate_pallas baseline, proto_r3b base, proto_r4b phi)
-    log(f"[study] block_32_64 {shape}, CUDA events, median of 20 [{card}]")
+    log(f"[study] block_32_64 {shape}, CUDA events, median of 20 "
+        f"(plain: of 5) [{card}]")
     log(f"    {'script':11s} {'variant':13s} {'instance':21s} {'kernel ms':>9s} "
         f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs first':>8s} agree")
     firsts = {}
@@ -704,11 +759,31 @@ def main() -> int:
             f"{row['ms'] / first:8.3f} {agree}")
     for row in study_rows:    # each instance's time: its first variant's row
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
+    # the SPA aggregation-precision table, each row against study_phi (the
+    # shipped tile kernel's arithmetic, proto_r2's sum-product yardstick);
+    # "shipped" is phase 3's agreement with the shipped precise SPA, "agree"
+    # the script's own reference's (fast_kernel_proto: the f32 path)
+    phi_ms = next(r["ms"] for r in sp_rows if r["tag"] == "sp-ref")
+    log(f"[study-sp] block_32_64 {shape}, CUDA events, median of 20 "
+        f"(plain: of 5) [{card}]")
+    log(f"    {'script':9s} {'variant':10s} {'instance':19s} {'kernel ms':>9s} "
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'shipped':>7s} "
+        f"agree")
+    for row in sp_rows:
+        # study_phi: 0 mismatched frames with the shipped kernel (phase 3)
+        shipped_agree = sp_agree.get(row["instance"], 1.0)
+        log(f"    {row['tag']:9s} {row['variant']:10s} {row['instance']:19s} "
+            f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
+            f"{row['ms'] / phi_ms:6.3f} {shipped_agree:7.5f} "
+            f"{row['agree']:.5f}")
+    for row in sp_rows:
+        times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the min-sum study's table, each row against study_ms_ref (the shipped
     # tile min-sum's arithmetic); "shipped" is phase 3's agreement with the
     # shipped precise min-sum, "agree" the script's own reference's
     ref_ms = next(r["ms"] for r in ms_rows if r["instance"] == "study_ms_ref")
-    log(f"[study-ms] block_32_64 {shape}, CUDA events, median of 20 [{card}]")
+    log(f"[study-ms] block_32_64 {shape}, CUDA events, median of 20 "
+        f"(plain: of 5) [{card}]")
     log(f"    {'script':9s} {'variant':10s} {'instance':19s} {'kernel ms':>9s} "
         f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs ref':>6s} {'shipped':>7s} "
         f"agree")

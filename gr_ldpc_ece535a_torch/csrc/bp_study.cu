@@ -9,6 +9,12 @@
 //   tools/proto_r3b.py:192     kernel_abl(variant)   -> study_phi, study_stub,
 //                                                       study_phi_noagg, study_phi_bf16
 //   tools/proto_r4b.py:34      kernel(variant)       -> study_phi, study_tanhprod
+//   tools/fast_kernel_proto.py:77  _sp_fast_kernel   -> study_sp_split
+//   tools/proto_r2.py:238      sumprod_kernel        -> study_phi_bf16all,
+//                                                       study_psprod
+//   tools/proto_r3.py:110      sumprod_kernel        -> study_phi_hilo
+//   tools/proto_r3.py:225      sumprod_kernel_v2     -> study_phi_hilo2,
+//                                                       study_psprod1p
 // The variants, their instances and the plain PyTorch versions (same
 // rounding order) are in ops/cuda_study.py.
 //
@@ -23,13 +29,27 @@
 //          kTanhprodCm  the same on the check-major layout with ablate_pallas's
 //                       L-form variable step and stubs (STUBS bits)
 //          kStub        E = 0.9 M: no transcendental at all ("nocheck")
-//   AGG    kF32         each message once, f32 sum (the TPU's HIGHEST, HIGH and
-//                       [hi; lo] forms, whose hi + lo is the f32 value)
+//          kPsprod      kTanhprodWm with the clip at +-(1 - 2^-23), so E stays
+//                       finite (proto_r2's psprod)
+//          kPsprod1p    the same clip, E = log1pf(T) - log1pf(-T): no divide
+//                       (proto_r3's psprod1p)
+//   AGG    kF32         each message once, f32 sum: the f32 reading of the
+//                       TPU's HIGHEST and HIGH products (and of its [hi; lo]
+//                       split, which kHilo computes as the TPU did)
 //          kBf16        operands rounded to bf16 first, f32 sum (the TPU's one
-//                       bf16 MXU pass: precision DEFAULT, "nosplit")
+//                       bf16 MXU pass: precision DEFAULT, "nosplit"); the
+//                       decision's sum in f32
 //          kNone        no aggregation, with JAX's index arithmetic ("nomm":
 //                       M = base + own E; "no_matmul": L[j] = E[j] + deg*r,
 //                       slot e reads L[e mod N], so E must be 3N)
+//          kSplit       total - own (_sp_fast_kernel): M0 = bf16(r); each step
+//                       L = sum of bf16(E) + deg*r, M = bf16(L - r) - own E;
+//                       the decision's sum of bf16(E)
+//          kBf16All     kBf16 with the decision's sum of bf16(E) too
+//          kHilo        hi = bf16(x), lo = bf16(x - hi), about 17 bits: the
+//                       others' hi, then their lo; the decision's sum of
+//                       bf16(E) (proto_r3's sumprod_kernel)
+//          kHilo2       kHilo with the decision's sum in hilo too (v2)
 //   FPT    1 or 2       frames a thread. The TPU's "skew" variants interleaved
 //                       two independent half-tiles so the MXU and VPU could
 //                       overlap; the Hopper analogue is two independent frames
@@ -49,7 +69,8 @@
 // Rounding: no fast math, --fmad=false; the row phi sum is pallas_bp._tree's
 // pairwise order; a variable's sums run from 0 in ascending slot order; the
 // exclusive products run from each end of the row, as _excl_prefix_prod and
-// _excl_suffix_prod.
+// _excl_suffix_prod. A product the TPU ran at precision DEFAULT rounds its
+// f32 operand to bf16 (__float2bfloat16_rn, nearest even) and sums in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,17 +82,38 @@ constexpr int kWr = 6;
 constexpr int kLanes = 32, kRows = 8, kThreads = kLanes * kRows;
 constexpr int kWcMax = 4;
 constexpr float kPhiClamp = 1e4f;        // pallas_bp._PHI_CLAMP
+// proto_r2's 0.9999999 and proto_r3's 0.999999881 are this one f32
+constexpr float kClip = 1.f - 1.f / (1 << 23);
 
-enum Check { kPhi, kExplog, kTanhprodWm, kTanhprodCm, kStub };
-enum Agg { kF32, kBf16, kNone };
+enum Check { kPhi, kExplog, kTanhprodWm, kTanhprodCm, kStub, kPsprod,
+             kPsprod1p };
+enum Agg { kF32, kBf16, kNone, kSplit, kBf16All, kHilo, kHilo2 };
 enum Stub { kNoTanh = 1, kNoExcl = 2, kNoLog = 4 };
 
+__device__ __forceinline__ float bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf16_lo(float x) {   // hilo's lo half
+  return bf16(x - bf16(x));
+}
+
+// An operand of the loop's aggregation as the kernel reads it (hilo: its hi).
 template <int AGG>
 __device__ __forceinline__ float agg_round(float x) {
-  if constexpr (AGG == kBf16)
-    return __bfloat162float(__float2bfloat16_rn(x));
-  else
+  if constexpr (AGG == kF32 || AGG == kNone)
     return x;
+  else
+    return bf16(x);
+}
+
+// An operand of the decision's sum (kHilo2: its hi).
+template <int AGG>
+__device__ __forceinline__ float final_round(float x) {
+  if constexpr (AGG == kF32 || AGG == kNone || AGG == kBf16)
+    return x;
+  else
+    return bf16(x);
 }
 
 // pallas_bp._tree: pairwise reduction with an odd element carried over.
@@ -135,7 +177,8 @@ __device__ __forceinline__ void check_wm(float* msg, const int* sv, int m,
           float* p = &msg[(k * M + m) * F + f + q * kLanes];
           *p = *p * 0.9f;
         }
-  } else if constexpr (CHECK == kTanhprodWm) {
+  } else if constexpr (CHECK == kTanhprodWm || CHECK == kPsprod ||
+                       CHECK == kPsprod1p) {
     // pads read as tanh(1e30 / 2) = 1
     float t[FPT][kWr], T[FPT][kWr];
 #pragma unroll
@@ -151,11 +194,15 @@ __device__ __forceinline__ void check_wm(float* msg, const int* sv, int m,
 #pragma unroll
       for (int q = 0; q < FPT; ++q)
         if (real[k]) {
-          // jnp.clip(T, -1 + 1e-12, 1 - 1e-12): both bounds round to +-1 in
-          // f32, so |T| = 1 gives +-inf as in JAX; NaN passes through
+          // tanhprod: jnp.clip(T, -1 + 1e-12, 1 - 1e-12), whose bounds round
+          // to +-1 in f32, so |T| = 1 gives +-inf as in JAX; psprod: +-kClip,
+          // E finite. NaN passes through either clip
+          constexpr float c = CHECK == kTanhprodWm ? 1.f : kClip;
           float x = T[q][k];
-          x = x < -1.f ? -1.f : (x > 1.f ? 1.f : x);
-          msg[(k * M + m) * F + f + q * kLanes] = logf((1.f + x) / (1.f - x));
+          x = x < -c ? -c : (x > c ? c : x);
+          msg[(k * M + m) * F + f + q * kLanes] =
+              CHECK == kPsprod1p ? log1pf(x) - log1pf(-x)
+                                 : logf((1.f + x) / (1.f - x));
         }
   } else {
     // phi domain (bp_wmajor.cu check_sumproduct); pads act as t = +1e30:
@@ -230,7 +277,8 @@ __device__ __forceinline__ void check_cm(float* msg, const int* sv, int m,
 }
 
 // W-major variable step for variable j: next messages base + aggregation,
-// base = (deg - 1) * r. With kNone, base + the slot's own E.
+// base = (deg - 1) * r. With kNone, base + the slot's own E; with kSplit,
+// bf16(L - r) - own E.
 template <int AGG, int FPT>
 __device__ __forceinline__ void var_msgs(float* msg, const float* r,
                                          const int* vs, int j, int Wc, int f) {
@@ -249,7 +297,20 @@ __device__ __forceinline__ void var_msgs(float* msg, const float* r,
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k)
       e[k] = s[k] >= 0 ? msg[s[k] * F + fq] : 0.f;
-    const float base = (float)(d - 1) * r[j * (F + 1) + fq];
+    const float rj = r[j * (F + 1) + fq];
+    if constexpr (AGG == kSplit) {
+      // one sum a variable: L = AE + deg*r, M = bf16(L - r) - own E
+      float AE = 0.f;
+#pragma unroll
+      for (int k = 0; k < kWcMax; ++k)
+        if (s[k] >= 0) AE = AE + bf16(e[k]);
+      const float lr = bf16((AE + (float)d * rj) - rj);
+#pragma unroll
+      for (int k = 0; k < kWcMax; ++k)
+        if (s[k] >= 0) msg[s[k] * F + fq] = lr - e[k];
+      continue;
+    }
+    const float base = (float)(d - 1) * rj;
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k) {
       if (s[k] < 0) continue;
@@ -260,14 +321,20 @@ __device__ __forceinline__ void var_msgs(float* msg, const float* r,
 #pragma unroll
         for (int i = 0; i < kWcMax; ++i)
           if (i != k && i < Wc) acc = acc + agg_round<AGG>(e[i]);
+        if constexpr (AGG == kHilo || AGG == kHilo2) {
+#pragma unroll
+          for (int i = 0; i < kWcMax; ++i)
+            if (i != k && i < Wc) acc = acc + bf16_lo(e[i]);
+        }
         msg[s[k] * F + fq] = base + acc;
       }
     }
   }
 }
 
-// W-major decision: sum of the variable's E (f32) + deg * r <= 0.
-template <int FPT>
+// W-major decision: sum of the variable's E (rounded as AGG's final sum) +
+// deg * r <= 0.
+template <int AGG, int FPT>
 __device__ __forceinline__ void var_decide(const float* msg, const float* r,
                                            const int* vs, int8_t* vh, int j,
                                            int Wc, int f) {
@@ -281,8 +348,15 @@ __device__ __forceinline__ void var_decide(const float* msg, const float* r,
     for (int k = 0; k < kWcMax; ++k) {
       const int s = k < Wc ? vs[j * Wc + k] : -1;
       if (s >= 0) {
-        tot = tot + msg[s * F + fq];
+        tot = tot + final_round<AGG>(msg[s * F + fq]);
         ++d;
+      }
+    }
+    if constexpr (AGG == kHilo2) {
+#pragma unroll
+      for (int k = 0; k < kWcMax; ++k) {
+        const int s = k < Wc ? vs[j * Wc + k] : -1;
+        if (s >= 0) tot = tot + bf16_lo(msg[s * F + fq]);
       }
     }
     vh[j * (F + 1) + fq] = tot + (float)d * r[j * (F + 1) + fq] <= 0.f;
@@ -353,8 +427,8 @@ study_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
       const int fq = f + q * kLanes;
       if constexpr (kCm)
         msg[e * F + fq] = j >= 0 ? agg_round<AGG>(r[j * RS + fq]) : 0.f;
-      else if (j >= 0)
-        msg[e * F + fq] = r[j * RS + fq];
+      else if (j >= 0)   // kSplit's first gather is a DEFAULT product
+        msg[e * F + fq] = AGG == kSplit ? bf16(r[j * RS + fq]) : r[j * RS + fq];
     }
   }
   __syncthreads();
@@ -399,7 +473,8 @@ study_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
         for (int q = 0; q < FPT; ++q) msg[e * F + f + q * kLanes] = 0.f;
     }
     __syncthreads();
-    for (int j = y; j < N; j += kRows) var_decide<FPT>(msg, r, vs, vh, j, Wc, f);
+    for (int j = y; j < N; j += kRows)
+      var_decide<AGG, FPT>(msg, r, vs, vh, j, Wc, f);
   }
   __syncthreads();
   for (int i = tid; i < F * N; i += kThreads) {   // coalesced out rows
@@ -460,6 +535,12 @@ const Instance kInstances[] = {
     STUDY(kTanhprodCm, kNone, 1, 0),
     STUDY(kTanhprodCm, kBf16, 1, 0),
     STUDY(kTanhprodCm, kNone, 1, kNoTanh | kNoExcl | kNoLog),
+    STUDY(kPhi, kSplit, 1, 0),
+    STUDY(kPhi, kBf16All, 1, 0),
+    STUDY(kPsprod, kBf16All, 1, 0),
+    STUDY(kPhi, kHilo, 1, 0),
+    STUDY(kPhi, kHilo2, 1, 0),
+    STUDY(kPsprod1p, kHilo2, 1, 0),
 };
 #undef STUDY
 constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);

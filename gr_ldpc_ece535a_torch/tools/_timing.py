@@ -18,13 +18,19 @@ import torch
 from ..codes import LdpcCode, get_code
 
 from ..ops import awgn, bpsk_map, encode_bits
+from ..ops.cuda_study import study_decode, study_plain
+from ..ops.cuda_study_ms import study_ms_decode, study_ms_plain
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "bound_ms", "minsum_kind", "TIMED_LAUNCHES", "EBN0_DB", "STUDY_FRAMES",
-           "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE"]
+           "bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
+           "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE"]
 
 TIMED_LAUNCHES = 20
 WARMUP = 3
+# a study row's plain version takes 30-95 ms on the card: the median of 5
+# launches after 1 warm-up keeps the studies' plain times at a fifth of the
+# time
+PLAIN_LAUNCHES = 5
 EBN0_DB = 4.0                  # bench.py's Eb/N0
 STUDY_FRAMES = 1 << 17         # the prototypes' batch
 # H100 SXM, NVIDIA's data sheet: HBM3 bytes a second, and f32 operations a
@@ -39,6 +45,9 @@ F32_OPS_S = 67e12
 #   sum-product  |x|, sign, tanh, log, clamp, the row sum, the sign product,
 #                the exclusion, tanh, log, two products (check); 2 (variable)
 OPS_PER_EDGE = {"minsum": 10, "sumproduct": 14}
+# a study kind -> (its instances' wrapper, their plain version)
+STUDY_FNS = {"minsum": (study_ms_decode, study_ms_plain),
+             "sumprod": (study_decode, study_plain)}
 
 
 def make_inputs(code: LdpcCode, batch: int, generator: torch.Generator,
@@ -49,16 +58,17 @@ def make_inputs(code: LdpcCode, batch: int, generator: torch.Generator,
     return awgn(generator, bpsk_map(encode_bits(d, code)), ebn0_db)
 
 
-def time_decode(fn, *args) -> float:
+def time_decode(fn, *args, launches: int = TIMED_LAUNCHES,
+                warmup: int = WARMUP) -> float:
     """Median milliseconds of ``fn(*args)`` on the card: CUDA events around
-    each of TIMED_LAUNCHES calls, after a warm-up."""
+    each of ``launches`` calls, after ``warmup`` calls."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_decode measures on a CUDA device; none found")
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(TIMED_LAUNCHES):
+    for _ in range(launches):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -82,16 +92,13 @@ def bound_ms(code: LdpcCode, frames: int, iterations: int,
                                                               "bytes")
 
 
-def minsum_kind(kind: str) -> None:
-    """Raise unless ``kind`` is the min-sum kind of a min-sum study script:
-    the sum-product prototypes of those scripts are not ported yet."""
-    if kind in ("sp", "sumprod"):
-        raise NotImplementedError(
-            "the sum-product prototypes are not ported yet: they are the next "
-            "slice of ROADMAP queue 2 item 4 (the SPA aggregation-precision "
-            "study)")
-    if kind not in ("ms", "minsum"):
-        raise ValueError(f"unknown kind {kind!r}; use minsum")
+def study_kind(kind: str) -> str:
+    """The study kind a script's ``kind`` names: "minsum" for "ms" or
+    "minsum", "sumprod" for "sp" or "sumprod"; ValueError on any other."""
+    name = {"ms": "minsum", "sp": "sumprod"}.get(kind, kind)
+    if name not in STUDY_FNS:
+        raise ValueError(f"unknown kind {kind!r}; use minsum or sumprod")
+    return name
 
 
 def study_inputs(device, frames: int) -> tuple[LdpcCode, torch.Tensor]:
@@ -106,9 +113,10 @@ def study_inputs(device, frames: int) -> tuple[LdpcCode, torch.Tensor]:
 def study_row(tag: str, variant: str, instance: str, run, plain,
               rx: torch.Tensor, code: LdpcCode, iterations: int,
               reference: torch.Tensor | None = None) -> dict:
-    """Decode rx through one variant, time it and its plain version on the
-    card, print one line and return it as a dict. ``run(variant, rx, code,
-    iterations)`` is the tool's function; ``plain(rx)`` the plain version.
+    """Decode rx through one variant, time it (median of TIMED_LAUNCHES) and
+    its plain version (of PLAIN_LAUNCHES) on the card, print one line and
+    return it as a dict. ``run(variant, rx, code, iterations)`` is the
+    tool's function; ``plain(rx)`` the plain version.
     ``reference`` may decide only the first frames of rx: the agreement is
     over those. A failing variant raises."""
     out = run(variant, rx, code, iterations)
@@ -121,7 +129,8 @@ def study_row(tag: str, variant: str, instance: str, run, plain,
                              .all(1).float().mean())
     if rx.device.type == "cuda":
         row["ms"] = time_decode(run, variant, rx, code, iterations)
-        row["plain_ms"] = time_decode(plain, rx)
+        row["plain_ms"] = time_decode(plain, rx, launches=PLAIN_LAUNCHES,
+                                      warmup=1)
         row["gbit_s"] = rx.shape[0] * code.K / (row["ms"] / 1e3) / 1e9
         times = (f"kernel {row['ms']:.4f} ms ({row['gbit_s']:.3f} Gbit/s), "
                  f"plain {row['plain_ms']:.4f} ms")
@@ -132,10 +141,14 @@ def study_row(tag: str, variant: str, instance: str, run, plain,
     return row
 
 
-def cli(main, doc: str) -> None:
-    """``python -m ...tools.<script> [--device cpu|cuda] [--frames N]``."""
+def cli(main, doc: str, v2=None) -> None:
+    """``python -m ...tools.<script> [--device cpu|cuda] [--frames N]``, and
+    ``--v2`` to run ``v2`` instead of ``main`` where the script has one."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--frames", type=int, default=STUDY_FRAMES)
+    if v2 is not None:
+        ap.add_argument("--v2", action="store_true",
+                        help=f"run {v2.__name__} instead of main")
     a = ap.parse_args()
-    main(a.device, a.frames)
+    (v2 if getattr(a, "v2", False) else main)(a.device, a.frames)

@@ -108,7 +108,9 @@ def _jax_run(tools, script, variant, rx, iterations):
 
 
 def _instance(script, variant):
-    return PORT[script].VARIANTS[variant]
+    variants = PORT[script].VARIANTS
+    return variants[variant] if script == "fast_kernel_proto" else \
+        variants["minsum"][variant]
 
 
 def _ok(v):
@@ -143,7 +145,11 @@ def test_the_scripts_run_their_instances(script):
     the kernel's arithmetic, which the plain version gives on the CPU."""
     rx = torch.from_numpy(_codewords(64, seed=1))
     mod = PORT[script]
-    for variant, inst in mod.VARIANTS.items():
+    if script == "fast_kernel_proto":
+        variants = {"ms": mod.VARIANTS["ms"]}
+    else:
+        variants = mod.VARIANTS["minsum"]
+    for variant, inst in variants.items():
         if script == "fast_kernel_proto":
             got = mod.run_fast(variant, rx, CODE, 5)
         else:
@@ -219,11 +225,13 @@ def test_each_instance_names_its_own_kernel():
 
 
 def test_every_variant_has_an_instance():
-    assert set(fast_kernel_proto.VARIANTS.values()) | set(
-        proto_r2.VARIANTS.values()) | set(proto_r3.VARIANTS.values()) | {
-        proto_r2.REF} == set(cuda_study_ms.INSTANCES)
-    assert proto_r2.VARIANTS["int8s"] == proto_r2.VARIANTS["int8"]
-    assert set(proto_r2.MAIN_VARIANTS) == set(proto_r2.VARIANTS) - {"int8s"}
+    assert {fast_kernel_proto.VARIANTS["ms"]} | set(
+        proto_r2.VARIANTS["minsum"].values()) | set(
+        proto_r3.VARIANTS["minsum"].values()) | {
+        proto_r2.REF["minsum"]} == set(cuda_study_ms.INSTANCES)
+    ms = proto_r2.VARIANTS["minsum"]
+    assert ms["int8s"] == ms["int8"]
+    assert set(proto_r2.MAIN_VARIANTS["minsum"]) == set(ms) - {"int8s"}
 
 
 def test_smem_plan():
@@ -250,13 +258,15 @@ def test_wrappers_raise():
         cuda_study_ms.study_ms_decode("study_ms_int8", rx.double(), CODE, 5)
     with pytest.raises(ValueError, match="iterations"):
         cuda_study_ms.study_ms_decode("study_ms_bits", rx, CODE, -1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fast_kernel_proto.run_fast("sp", rx, CODE)
+    # the sum-product kinds run their instances (tests/test_torch_study_sp.py)
+    assert fast_kernel_proto.run_fast("sp", rx, CODE).shape == rx.shape
     for mod in (proto_r2, proto_r3):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mod.run("sumprod", "current", rx, CODE)
+        assert mod.run("sumprod", "current" if mod is proto_r2 else "stacked",
+                       rx, CODE).shape == rx.shape
         with pytest.raises(ValueError, match="kind"):
             mod.run("turbo", "current", rx, CODE)
+    with pytest.raises(ValueError, match="kind"):
+        fast_kernel_proto.run_fast("turbo", rx, CODE)
     with pytest.raises(KeyError):
         proto_r2.run("minsum", "psprod", rx, CODE)
 
@@ -271,18 +281,20 @@ def test_cpu_tensors_do_not_count_launches():
 @pytest.mark.parametrize("script", list(PORT))
 def test_main_on_the_cpu(script, capsys):
     """main runs the plain versions on the CPU, one line a row, and
-    measures no time there; the rows' references agree on these frames."""
+    measures no time there; the min-sum rows' references agree on these
+    frames. (Its sum-product rows: tests/test_torch_study_sp.py.)"""
     mod = PORT[script]
     rows = mod.main(device="cpu", frames=64, iterations=5)
+    ms = [r for r in rows if r["tag"].startswith("ms-")]
     want = {"fast_kernel_proto": ["ms"],
-            "proto_r2": ["shipped", *proto_r2.MAIN_VARIANTS],
-            "proto_r3": list(proto_r3.VARIANTS)}[script]
-    assert [r["variant"] for r in rows] == want
+            "proto_r2": ["shipped", *proto_r2.MAIN_VARIANTS["minsum"]],
+            "proto_r3": list(proto_r3.VARIANTS["minsum"])}[script]
+    assert [r["variant"] for r in ms] == want
     assert all(r["ms"] is None and r["plain_ms"] is None for r in rows)
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == len(want)
+    assert len(lines) == len(rows)
     assert all("not measured" in line for line in lines)
-    assert rows[0]["agree"] == 1.0
+    assert ms[0]["agree"] == 1.0
     assert all(r["agree"] is not None for r in rows)
 
 
