@@ -7,7 +7,10 @@ Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu,
               csrc/bp_study.cu and csrc/bp_study_ms.cu, in parallel, into
-              gr_ldpc_ece535a_torch/_build/; prints ptxas's summary
+              gr_ldpc_ece535a_torch/_build/; prints ptxas's summary; counts
+              each study kernel's static SASS instructions (cuobjdump) and
+              fails unless every unrolled instance has more than its
+              unroll-1 sibling
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
               rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
               iterations, both methods x both modes x both forms, plus edge
@@ -25,7 +28,12 @@ Phases, each of which raises on a miss:
               SPA (>= 99% for the bf16 and hi/lo phi forms); every min-sum
               study instance likewise, study_ms_ref against the shipped
               precise min-sum (0), and the bf16-aggregation instances'
-              agreement with it (>= 99%)
+              agreement with it (>= 99%); the ten instances of the loop-unroll
+              study (proto_r3c, proto_r4) also at 0, 1, 2 and 5 steps and on
+              the saturating rx, each unrolled instance against its unroll-1
+              sibling at 131,072 x 20 (0 mismatching frames each), and the
+              textbook SPA's agreement and frame error share against the sent
+              codewords beside the shipped SPA's (no bar)
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -40,12 +48,16 @@ Phases, each of which raises on a miss:
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
                           proto_r3 and its main_v2, each of the last three
-                          with its sum-product and min-sum kinds) at
+                          with its sum-product and min-sum kinds; proto_r3c
+                          and proto_r4, the loop-unroll study) at
                           131,072 x 20, 4 dB; each times its variants'
                           kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
               the whole forward and of each sweep point; the studies' tables
-              (the SPA aggregation-precision rows as ratios to study_phi)
+              (the SPA aggregation-precision rows as ratios to study_phi);
+              the unroll table: each unrolled instance timed against its
+              unroll-1 sibling in one interleaved run, with its SASS count,
+              registers and spills
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed.
@@ -55,6 +67,7 @@ card's name and power limit; the last line is the JSON result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -106,7 +119,11 @@ STUDY_REPLACES = {
     "study_psprod": "tools/proto_r2.py:238",
     "study_phi_hilo": "tools/proto_r3.py:110",
     "study_phi_hilo2": "tools/proto_r3.py:225",
-    "study_psprod1p": "tools/proto_r3.py:225"}
+    "study_psprod1p": "tools/proto_r3.py:225",
+    **{n: "tools/proto_r3c.py:30" for n in (
+        "study_phi_textbook", "study_phi_textbook_u2", "study_phi_textbook_u4")},
+    **{n: "tools/proto_r4.py:38" for n in (
+        "study_phi_hilo2_u19", "study_phi_bf16all_u19")}}
 # the SPA aggregation-precision instances (fast_kernel_proto, proto_r2 and
 # proto_r3's sum-product kernels); the bf16 and hi/lo phi forms keep the fast
 # contract against the shipped precise SPA, the others are reported
@@ -122,11 +139,24 @@ STUDY_MS_REPLACES = {
     "study_ms_argmin": "tools/fast_kernel_proto.py:120",
     **{f"study_ms_{v}": "tools/proto_r2.py:80" for v in (
         "current", "stub_check", "stub_mm", "bits", "bf16", "int8", "split")},
-    "study_ms_hilo": "tools/proto_r3.py:78"}
+    "study_ms_hilo": "tools/proto_r3.py:78",
+    **{n: "tools/proto_r3c.py:30" for n in (
+        "study_ms_current_u2", "study_ms_current_u4")},
+    **{n: "tools/proto_r4.py:38" for n in (
+        "study_ms_current_u19", "study_ms_hilo2", "study_ms_hilo2_u19")}}
 # the bf16-aggregation candidates: the fast contract against the shipped
 # precise min-sum, as the TPU's own fast min-sum kept it
 MS_FAST = ("study_ms_current", "study_ms_bits", "study_ms_argmin",
-           "study_ms_split", "study_ms_hilo")
+           "study_ms_split", "study_ms_hilo", "study_ms_current_u2",
+           "study_ms_current_u4", "study_ms_current_u19", "study_ms_hilo2",
+           "study_ms_hilo2_u19")
+# the loop-unroll study's new instances (tools/proto_r3c.py, proto_r4.py)
+UNROLL_NEW = ("study_phi_textbook", "study_phi_textbook_u2",
+              "study_phi_textbook_u4", "study_phi_hilo2_u19",
+              "study_phi_bf16all_u19", "study_ms_current_u2",
+              "study_ms_current_u4", "study_ms_current_u19", "study_ms_hilo2",
+              "study_ms_hilo2_u19")
+TEXTBOOK = "study_phi_textbook"      # proto_r3c's sumprod: r enters once
 
 
 def log(*args) -> None:
@@ -174,9 +204,11 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
     from gr_ldpc_ece535a_torch.tools import (ablate_pallas, fast_kernel_proto,
                                              proto_r2, proto_r3, proto_r3b,
-                                             proto_r4b)
+                                             proto_r3c, proto_r4, proto_r4b)
     from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
                                                      time_decode)
+    from gr_ldpc_ece535a_torch.tools.issue_model import (sass_dump,
+                                                         sass_functions)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -193,6 +225,7 @@ def main() -> int:
     built = build()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas:")
+    regs, spills = {}, {}                    # study instance -> ptxas's numbers
     for _, build_log in built.values():      # one line per kernel
         name, notes = None, []
         for line in build_log.splitlines() + ["Compiling (end)"]:
@@ -213,9 +246,31 @@ def main() -> int:
                     name = study
             elif name and ("Used" in line or "spill" in line):
                 notes.append(line.split(":", 1)[-1].strip())
+                if m := re.search(r"Used (\d+) registers", line):
+                    regs[name] = int(m[1])
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line):
+                    spills[name] = (int(m[1]), int(m[2]))
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
     slib = cuda_study._study_lib()    # checks its instance table
     mlib = cuda_study_ms._study_ms_lib()
+    # each unrolled instance -> its unroll-1 sibling; the unroll must show
+    # in the code: more static SASS instructions than the sibling's
+    siblings, sass = {}, {}
+    for lib_name, mod in (("bp_study", cuda_study),
+                          ("bp_study_ms", cuda_study_ms)):
+        by_spec = {s: n for n, s in mod.INSTANCES.items()}
+        siblings.update({n: by_spec[dataclasses.replace(s, unroll=1)]
+                         for n, s in mod.INSTANCES.items() if s.unroll > 1})
+        for fn, ops in sass_functions(sass_dump(built[lib_name][0])).items():
+            if inst := mod.instance_of(fn):
+                sass[inst] = len(ops)
+    for name, sib in siblings.items():
+        log(f"[build] {name}: {sass[name]} static SASS instructions, "
+            f"{sib} {sass[sib]}")
+        if not sass[name] > sass[sib]:
+            raise AssertionError(f"{name}: no more code than {sib}; the "
+                                 f"unroll is not in the kernel")
     gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
            for m, n in ((200, 400), (256, 512), (320, 640))}
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
@@ -499,6 +554,52 @@ def main() -> int:
             raise AssertionError(f"{name}: agreement {ms_agree[name]} with "
                                  f"the shipped precise min-sum")
     del shipped, vk, vp
+    # the loop-unroll study: the new instances at few steps (the unrolled
+    # blocks and the remainder) and on the saturating rx against their plain
+    # versions, and each unrolled instance against its unroll-1 sibling: an
+    # unroll changes no arithmetic, 0 mismatching frames
+    decoders = {**{n: (cuda_study.study_decode, cuda_study.study_plain)
+                   for n in cuda_study.INSTANCES},
+                **{n: (cuda_study_ms.study_ms_decode,
+                       cuda_study_ms.study_ms_plain)
+                   for n in cuda_study_ms.INSTANCES}}
+    for name in UNROLL_NEW:
+        dec, plain = decoders[name]
+        for tag, rx, steps in (("iterations 0", rxi, 0), ("iterations 1", rxi, 1),
+                               ("iterations 2", rxi, 2), ("iterations 5", rxi, 5),
+                               ("saturating rx (+-30)", sat, ITERATIONS)):
+            compare(f"{name} vs plain {tag}", dec(name, rx, code, steps),
+                    plain(name, rx, code, steps), code, False, identical=True)
+    for name, sib in siblings.items():
+        dec = decoders[name][0]
+        compare(f"{name} vs {sib} {shape}", dec(name, rx4, code, ITERATIONS),
+                dec(sib, rx4, code, ITERATIONS), code, False, identical=True)
+    # the textbook SPA (r once in the loop, r + sum E < 0) beside the shipped
+    # SPA: agreement, and the frame error share against the codewords sent
+    # (rx4's first draw, regenerated from its seed); reported, no bar
+    sent4 = encode_bits(torch.randint(
+        0, 2, (N_FRAMES, code.K),
+        generator=torch.Generator(device=dev).manual_seed(1000), device=dev,
+        dtype=torch.int8), code)
+    if not float(((rx4 > 0).to(torch.int8) == sent4).float().mean()) > 0.9:
+        raise AssertionError("the regenerated codewords are not rx4's")
+    textbook = {
+        "shipped precise SPA": kernels["sumproduct"](rx4, code, ITERATIONS,
+                                                     mode="precise"),
+        "shipped fast SPA": kernels["sumproduct"](rx4, code, ITERATIONS,
+                                                  mode="fast"),
+        TEXTBOOK: cuda_study.study_decode(TEXTBOOK, rx4, code, ITERATIONS),
+        "study_ms_current": cuda_study_ms.study_ms_decode(
+            "study_ms_current", rx4, code, ITERATIONS)}
+    shipped = textbook["shipped precise SPA"]
+    textbook = {k: (float((v == shipped).all(1).float().mean()),
+                    float((v != sent4).any(1).float().mean()))
+                for k, v in textbook.items()}
+    for k, (agree, fer) in textbook.items():
+        log(f"[kernels] {k} {shape}: frame agreement with the shipped "
+            f"precise SPA {agree:.5f}, frame error share against the sent "
+            f"codewords {fer:.6f}")
+    del shipped, sent4
 
     # -- 4. paths -----------------------------------------------------------
     def drive(path, fn, want, launches=(cuda_bp.LAUNCHES,)):
@@ -633,6 +734,24 @@ def main() -> int:
         sp_rows += [r for r in rows if r["tag"].startswith("sp-")]
         for inst, n in counts.items():
             (study_counts if inst in study_counts else ms_counts)[inst] += n
+    # the loop-unroll study's main: every (kind, unroll) it names; every form
+    # but the textbook SPA keeps the fast contract against its reference
+    # (the shipped kernel in the script's mode)
+    unroll_rows = []
+    for tool in (proto_r3c, proto_r4):
+        rows, counts = drive(
+            tool.__name__.rsplit(".", 1)[1],
+            functools.partial(tool.main, "cuda", N_FRAMES, ITERATIONS),
+            {i for v in tool.VARIANTS.values() for i in v.values()},
+            (cuda_study.LAUNCHES, cuda_study_ms.LAUNCHES))
+        unroll_rows += rows
+        for inst, n in counts.items():
+            (study_counts if inst in study_counts else ms_counts)[inst] += n
+    for row in unroll_rows:
+        if (not row["instance"].startswith(TEXTBOOK)
+                and not row["agree"] >= FIXED_MIN_AGREE):
+            raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
+                                 f"{row['agree']} with its reference")
     for row in ms_rows:
         if row["instance"] in MS_FAST and not row["agree"] >= FIXED_MIN_AGREE:
             raise AssertionError(f"{row['tag']} {row['variant']}: agreement "
@@ -794,6 +913,35 @@ def main() -> int:
             f"{row['agree']:.5f}")
     for row in ms_rows:
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
+    # the loop-unroll study's rows, then the unroll table: each unrolled
+    # instance against its unroll-1 sibling, timed in one interleaved run
+    # (sibling, unrolled, unrolled, sibling; each a median of 20)
+    log(f"[study-unroll] block_32_64 {shape}, CUDA events, median of 20 "
+        f"(plain: of 5) [{card}]")
+    log(f"    {'script':8s} {'variant':17s} {'instance':21s} {'kernel ms':>9s} "
+        f"{'plain ms':>9s} {'Gbit/s':>7s} agree")
+    for row in unroll_rows:
+        log(f"    {row['tag']:8s} {row['variant']:17s} {row['instance']:21s} "
+            f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
+            f"{row['agree']:.5f}")
+        times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
+    log(f"[unroll] block_32_64 {shape}: unrolled vs unroll-1 sibling, "
+        f"interleaved; SASS = static instructions, spills = ptxas store/load "
+        f"bytes [{card}]")
+    log(f"    {'instance':21s} {'ms':>8s} {'sibling ms':>10s} {'ratio':>6s} "
+        f"{'plain ms':>9s} {'SASS':>6s} {'sib SASS':>8s} {'regs':>4s} spills")
+    for name, sib in siblings.items():
+        dec = decoders[name][0]
+        s1, u1, u2, s2 = (time_decode(dec, n, rx4, code, ITERATIONS)
+                          for n in (sib, name, name, sib))
+        um, sm = (u1 + u2) / 2, (s1 + s2) / 2
+        log(f"    {name:21s} {um:8.4f} {sm:10.4f} {um / sm:6.3f} "
+            f"{times[name][1]:9.4f} {sass[name]:6d} {sass[sib]:8d} "
+            f"{regs.get(name, -1):4d} {spills.get(name)} (sibling {sib}: "
+            f"regs {regs.get(sib, -1)}, spills {spills.get(sib)}; "
+            f"{s1:.4f} / {u1:.4f} / {u2:.4f} / {s2:.4f} ms)")
+    log("    textbook SPA (no bar): " + "; ".join(
+        f"{k} agree {a:.5f} FER {f:.6f}" for k, (a, f) in textbook.items()))
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""

@@ -19,7 +19,11 @@
 //                var-major order (pads 0), L = ((x0 + x1) + x2) + ..., and
 //                the next message M_v = (cum_v - x_v) + (rcum_v - x_v) with
 //                cum/rcum the inclusive running sums from the front / back
-//                (ops/decode.py::_excl_sum). Decision L <= 0.
+//                (ops/decode.py::_excl_sum). Where L is not finite (a
+//                saturated x_v = +-inf forms inf - inf in the running sums),
+//                every M_v is the sum of the other x from 0 in slot order, so
+//                a saturated frame keeps its +-inf messages and decides its
+//                codeword at any number of iterations. Decision L <= 0.
 //   min-sum      beta = |Lq| (pads FLT_MAX), alpha = sign(Lq) with
 //                sign(0) = 0, P = product of alpha; min1, the first argmin
 //                and min2 (the minimum with the argmin masked);
@@ -132,6 +136,23 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* cv, int m,
   }
 }
 
+// For each of the Wc slots, the sum of the other slots' x from 0 in slot
+// order. Out of line: only a variable with a saturated message calls it,
+// and inlined it would be predicated into every variable step.
+static_assert(kWcMax == 4, "others_sum carries the slots in a float4");
+__device__ __noinline__ float4 others_sum(float4 x4, int Wc) {
+  const float x[kWcMax] = {x4.x, x4.y, x4.z, x4.w};
+  float o[kWcMax];
+#pragma unroll
+  for (int v = 0; v < kWcMax; ++v) {
+    o[v] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWcMax; ++i)
+      if (i != v && i < Wc) o[v] = o[v] + x[i];
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
 // Variable step for variable j of frame f: reads its check messages (E or
 // Lr) in var-major order, writes the decision (last iteration) or the next
 // edge messages.
@@ -169,6 +190,16 @@ __device__ __forceinline__ void var_step(float* msg, const float* r,
       if (v >= Wc) continue;
       acc = v == Wc - 1 ? x[v] : acc + x[v];
       if (s[v] >= 0) msg[s[v] * kFrames + f] = (cum[v] - x[v]) + (acc - x[v]);
+    }
+    // a saturated slot (x = +-inf) forms inf - inf in the running sums:
+    // then every slot takes the others' sum, written over the stores above
+    // so that a finite variable runs the running-sum code alone
+    if (!isfinite(tot)) {
+      const float4 o4 = others_sum(make_float4(x[0], x[1], x[2], x[3]), Wc);
+      const float o[kWcMax] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int v = 0; v < kWcMax; ++v)
+        if (v < Wc && s[v] >= 0) msg[s[v] * kFrames + f] = o[v];
     }
   } else {
     const float LQ = rj + tot;

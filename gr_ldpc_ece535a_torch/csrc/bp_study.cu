@@ -15,6 +15,9 @@
 //   tools/proto_r3.py:110      sumprod_kernel        -> study_phi_hilo
 //   tools/proto_r3.py:225      sumprod_kernel_v2     -> study_phi_hilo2,
 //                                                       study_psprod1p
+//   tools/proto_r3c.py:30      kernel("sumprod", k)  -> study_phi_textbook(_u2, _u4)
+//   tools/proto_r4.py:38       kernel("sumprod", ..) -> study_phi_hilo2(_u19),
+//                                                       study_phi_bf16all(_u19)
 // The variants, their instances and the plain PyTorch versions (same
 // rounding order) are in ops/cuda_study.py.
 //
@@ -50,11 +53,20 @@
 //                       others' hi, then their lo; the decision's sum of
 //                       bf16(E) (proto_r3's sumprod_kernel)
 //          kHilo2       kHilo with the decision's sum in hilo too (v2)
+//          kTextbook    proto_r3c's "sumprod": the loop's base is r, not
+//                       (deg - 1) * r, so r enters once; bf16 operands, f32
+//                       sums; decision r + sum of bf16(E) < 0 (strict)
 //   FPT    1 or 2       frames a thread. The TPU's "skew" variants interleaved
 //                       two independent half-tiles so the MXU and VPU could
 //                       overlap; the Hopper analogue is two independent frames
 //                       a thread (ILP against SFU and shared-memory latency),
 //                       with the same per-frame arithmetic.
+//   UNROLL 1, 2, 4, 19   the w-major step loop unrolled U times: blocks of U
+//                       full steps with a compile-time trip count, then the
+//                       rest one step at a time (19 steps: 9 x 2 + 1 at U = 2,
+//                       4 x 4 + 3 at U = 4, 1 x 19 at U = 19), as JAX's
+//                       fori_loop(unroll=U). The steps are a runtime argument;
+//                       U changes the code, never the arithmetic.
 //
 // Work layout as the tile kernel: a block of 32 lanes x 8 rows keeps 32 * FPT
 // frames; messages [slot][frame] in shared memory for all iterations; rx read
@@ -87,7 +99,8 @@ constexpr float kClip = 1.f - 1.f / (1 << 23);
 
 enum Check { kPhi, kExplog, kTanhprodWm, kTanhprodCm, kStub, kPsprod,
              kPsprod1p };
-enum Agg { kF32, kBf16, kNone, kSplit, kBf16All, kHilo, kHilo2 };
+enum Agg { kF32, kBf16, kNone, kSplit, kBf16All, kHilo, kHilo2,
+           kTextbook };
 enum Stub { kNoTanh = 1, kNoExcl = 2, kNoLog = 4 };
 
 __device__ __forceinline__ float bf16(float x) {
@@ -277,8 +290,8 @@ __device__ __forceinline__ void check_cm(float* msg, const int* sv, int m,
 }
 
 // W-major variable step for variable j: next messages base + aggregation,
-// base = (deg - 1) * r. With kNone, base + the slot's own E; with kSplit,
-// bf16(L - r) - own E.
+// base = (deg - 1) * r (kTextbook: r). With kNone, base + the slot's own E;
+// with kSplit, bf16(L - r) - own E.
 template <int AGG, int FPT>
 __device__ __forceinline__ void var_msgs(float* msg, const float* r,
                                          const int* vs, int j, int Wc, int f) {
@@ -310,7 +323,7 @@ __device__ __forceinline__ void var_msgs(float* msg, const float* r,
         if (s[k] >= 0) msg[s[k] * F + fq] = lr - e[k];
       continue;
     }
-    const float base = (float)(d - 1) * rj;
+    const float base = AGG == kTextbook ? rj : (float)(d - 1) * rj;
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k) {
       if (s[k] < 0) continue;
@@ -333,7 +346,7 @@ __device__ __forceinline__ void var_msgs(float* msg, const float* r,
 }
 
 // W-major decision: sum of the variable's E (rounded as AGG's final sum) +
-// deg * r <= 0.
+// deg * r <= 0 (kTextbook: r + the sum < 0).
 template <int AGG, int FPT>
 __device__ __forceinline__ void var_decide(const float* msg, const float* r,
                                            const int* vs, int8_t* vh, int j,
@@ -359,7 +372,9 @@ __device__ __forceinline__ void var_decide(const float* msg, const float* r,
         if (s >= 0) tot = tot + bf16_lo(msg[s * F + fq]);
       }
     }
-    vh[j * (F + 1) + fq] = tot + (float)d * r[j * (F + 1) + fq] <= 0.f;
+    const float rj = r[j * (F + 1) + fq];
+    vh[j * (F + 1) + fq] =
+        AGG == kTextbook ? rj + tot < 0.f : tot + (float)d * rj <= 0.f;
   }
 }
 
@@ -383,7 +398,7 @@ __device__ __forceinline__ void cm_total(const float* msg, const float* r,
   L[j * (F + 1) + f] = acc + (float)d * r[j * (F + 1) + f];
 }
 
-template <int CHECK, int AGG, int FPT, int STUBS>
+template <int CHECK, int AGG, int FPT, int STUBS, int UNROLL>
 int smem_of(int M, int N, int Wc) {
   constexpr int F = kLanes * FPT;
   const int E = kWr * M;
@@ -391,13 +406,26 @@ int smem_of(int M, int N, int Wc) {
   return 4 * (E * F + N * (F + 1) + L + E + N * Wc) + N * (F + 1);
 }
 
-template <int CHECK, int AGG, int FPT, int STUBS>
+// One full w-major step: the check step, then every variable's next messages.
+template <int CHECK, int AGG, int FPT>
+__device__ __forceinline__ void wm_step(float* msg, const float* r,
+                                        const int* sv, const int* vs, int M,
+                                        int N, int Wc, int f, int y) {
+  for (int m = y; m < M; m += kRows) check_wm<CHECK, FPT>(msg, sv, m, M, f);
+  __syncthreads();
+  for (int j = y; j < N; j += kRows) var_msgs<AGG, FPT>(msg, r, vs, j, Wc, f);
+  __syncthreads();
+}
+
+template <int CHECK, int AGG, int FPT, int STUBS, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
 study_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
              const int* __restrict__ slot_var,
              const int* __restrict__ var_slots, int M, int N, int Wc,
              int steps) {
   constexpr bool kCm = CHECK == kTanhprodCm;
+  static_assert(UNROLL >= 1 && (UNROLL == 1 || !kCm),
+                "the unroll is a w-major form");
   constexpr int F = kLanes * FPT, RS = F + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int E = kWr * M;
@@ -458,13 +486,20 @@ study_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     for (int j = y; j < N; j += kRows)
       vh[j * RS + f] = (steps > 0 ? L[j * RS + f] : r[j * RS + f]) <= 0.f;
   } else {
-    // steps-1 full steps, a trailing check step, the decision
-    for (int it = 0; it + 1 < steps; ++it) {
-      for (int m = y; m < M; m += kRows) check_wm<CHECK, FPT>(msg, sv, m, M, f);
-      __syncthreads();
-      for (int j = y; j < N; j += kRows) var_msgs<AGG, FPT>(msg, r, vs, j, Wc, f);
-      __syncthreads();
+    // steps-1 full steps, a trailing check step, the decision. UNROLL > 1:
+    // the full steps in blocks of UNROLL with a compile-time trip count,
+    // which nvcc unrolls, then the rest one at a time, as at UNROLL = 1
+    const int full = steps - 1;
+    int it = 0;
+    if constexpr (UNROLL > 1) {
+      for (; it + UNROLL <= full; it += UNROLL) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          wm_step<CHECK, AGG, FPT>(msg, r, sv, vs, M, N, Wc, f, y);
+      }
     }
+    for (; it < full; ++it)
+      wm_step<CHECK, AGG, FPT>(msg, r, sv, vs, M, N, Wc, f, y);
     if (steps > 0) {
       for (int m = y; m < M; m += kRows) check_wm<CHECK, FPT>(msg, sv, m, M, f);
     } else {
@@ -484,23 +519,23 @@ study_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
 }
 
-template <int CHECK, int AGG, int FPT, int STUBS>
+template <int CHECK, int AGG, int FPT, int STUBS, int UNROLL>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
                    const int* var_slots, int M, int N, int Wc, int steps,
                    cudaStream_t stream) {
   if (CHECK == kTanhprodCm && AGG == kNone && kWr * M != 3 * N)
     return cudaErrorInvalidValue;              // no_matmul: L tiled 3x
   constexpr int F = kLanes * FPT;
-  const int smem = smem_of<CHECK, AGG, FPT, STUBS>(M, N, Wc);
+  const int smem = smem_of<CHECK, AGG, FPT, STUBS, UNROLL>(M, N, Wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        study_kernel<CHECK, AGG, FPT, STUBS>,
+        study_kernel<CHECK, AGG, FPT, STUBS, UNROLL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((B + F - 1) / F));
   const dim3 block(kLanes, kRows);
-  study_kernel<CHECK, AGG, FPT, STUBS><<<grid, block, smem, stream>>>(
+  study_kernel<CHECK, AGG, FPT, STUBS, UNROLL><<<grid, block, smem, stream>>>(
       rx, out, B, slot_var, var_slots, M, N, Wc, steps);
   return cudaGetLastError();
 }
@@ -509,38 +544,43 @@ using Launcher = cudaError_t (*)(const float*, int8_t*, int, const int*,
                                  const int*, int, int, int, int, cudaStream_t);
 using SmemFn = int (*)(int, int, int);
 struct Instance {
-  int check, agg, fpt, stubs;
+  int check, agg, fpt, stubs, unroll;
   Launcher launch;
   SmemFn smem;
 };
 
 // The instantiated templates. ops/cuda_study.py names them and finds each by
-// its four arguments (bp_study_find); the enums' numbering is its CHECKS,
+// its five arguments (bp_study_find); the enums' numbering is its CHECKS,
 // AGGS and STUB_BITS.
 #define STUDY(...) {__VA_ARGS__, launch<__VA_ARGS__>, smem_of<__VA_ARGS__>}
 const Instance kInstances[] = {
-    STUDY(kPhi, kF32, 1, 0),
-    STUDY(kPhi, kF32, 2, 0),
-    STUDY(kExplog, kF32, 1, 0),
-    STUDY(kExplog, kF32, 2, 0),
-    STUDY(kStub, kF32, 1, 0),
-    STUDY(kPhi, kNone, 1, 0),
-    STUDY(kPhi, kBf16, 1, 0),
-    STUDY(kTanhprodWm, kF32, 1, 0),
-    STUDY(kTanhprodCm, kF32, 1, 0),
-    STUDY(kTanhprodCm, kF32, 1, kNoTanh),
-    STUDY(kTanhprodCm, kF32, 1, kNoLog),
-    STUDY(kTanhprodCm, kF32, 1, kNoTanh | kNoLog),
-    STUDY(kTanhprodCm, kF32, 1, kNoExcl),
-    STUDY(kTanhprodCm, kNone, 1, 0),
-    STUDY(kTanhprodCm, kBf16, 1, 0),
-    STUDY(kTanhprodCm, kNone, 1, kNoTanh | kNoExcl | kNoLog),
-    STUDY(kPhi, kSplit, 1, 0),
-    STUDY(kPhi, kBf16All, 1, 0),
-    STUDY(kPsprod, kBf16All, 1, 0),
-    STUDY(kPhi, kHilo, 1, 0),
-    STUDY(kPhi, kHilo2, 1, 0),
-    STUDY(kPsprod1p, kHilo2, 1, 0),
+    STUDY(kPhi, kF32, 1, 0, 1),
+    STUDY(kPhi, kF32, 2, 0, 1),
+    STUDY(kExplog, kF32, 1, 0, 1),
+    STUDY(kExplog, kF32, 2, 0, 1),
+    STUDY(kStub, kF32, 1, 0, 1),
+    STUDY(kPhi, kNone, 1, 0, 1),
+    STUDY(kPhi, kBf16, 1, 0, 1),
+    STUDY(kTanhprodWm, kF32, 1, 0, 1),
+    STUDY(kTanhprodCm, kF32, 1, 0, 1),
+    STUDY(kTanhprodCm, kF32, 1, kNoTanh, 1),
+    STUDY(kTanhprodCm, kF32, 1, kNoLog, 1),
+    STUDY(kTanhprodCm, kF32, 1, kNoTanh | kNoLog, 1),
+    STUDY(kTanhprodCm, kF32, 1, kNoExcl, 1),
+    STUDY(kTanhprodCm, kNone, 1, 0, 1),
+    STUDY(kTanhprodCm, kBf16, 1, 0, 1),
+    STUDY(kTanhprodCm, kNone, 1, kNoTanh | kNoExcl | kNoLog, 1),
+    STUDY(kPhi, kSplit, 1, 0, 1),
+    STUDY(kPhi, kBf16All, 1, 0, 1),
+    STUDY(kPsprod, kBf16All, 1, 0, 1),
+    STUDY(kPhi, kHilo, 1, 0, 1),
+    STUDY(kPhi, kHilo2, 1, 0, 1),
+    STUDY(kPsprod1p, kHilo2, 1, 0, 1),
+    STUDY(kPhi, kTextbook, 1, 0, 1),
+    STUDY(kPhi, kTextbook, 1, 0, 2),
+    STUDY(kPhi, kTextbook, 1, 0, 4),
+    STUDY(kPhi, kHilo2, 1, 0, 19),
+    STUDY(kPhi, kBf16All, 1, 0, 19),
 };
 #undef STUDY
 constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);
@@ -549,11 +589,12 @@ constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);
 
 extern "C" {
 
-// Index of the instance study_kernel<check, agg, fpt, stubs>, or -1.
-int bp_study_find(int check, int agg, int fpt, int stubs) {
+// Index of the instance study_kernel<check, agg, fpt, stubs, unroll>, or -1.
+int bp_study_find(int check, int agg, int fpt, int stubs, int unroll) {
   for (int i = 0; i < kCount; ++i) {
     const Instance& s = kInstances[i];
-    if (s.check == check && s.agg == agg && s.fpt == fpt && s.stubs == stubs)
+    if (s.check == check && s.agg == agg && s.fpt == fpt && s.stubs == stubs &&
+        s.unroll == unroll)
       return i;
   }
   return -1;

@@ -8,6 +8,10 @@
 //       study_ms_stub_check, study_ms_stub_mm, study_ms_bits, study_ms_bf16,
 //       study_ms_int8 (also "int8s", the same code), study_ms_split
 //   tools/proto_r3.py:78            minsum_kernel(variant)   -> study_ms_hilo
+//   tools/proto_r3c.py:30           kernel("minsum", k)      -> study_ms_current,
+//       study_ms_current_u2, study_ms_current_u4
+//   tools/proto_r4.py:38            kernel("minsum", ...)    -> study_ms_hilo2,
+//       study_ms_hilo2_u19 (precise), study_ms_current(_u19) (fast)
 // and study_ms_ref, the shipped tile min-sum's arithmetic, as the yardstick.
 // Names, specs and the plain PyTorch versions (same rounding order) are in
 // ops/cuda_study_ms.py.
@@ -34,6 +38,14 @@
 //          kHilo     hi = bf16(x), lo = bf16(x - hi): about 17 bits; the sum
 //                    takes the others' hi first, then their lo (proto_r3's
 //                    "stacked" order); the final sum is one bf16 pass
+//          kHilo2    kHilo with the decision's sum in hi/lo too: all edges'
+//                    hi, then their lo (proto_r4's precise min-sum)
+//   UNROLL 1, 2, 4 or 19: the step loop unrolled U times, in blocks of U full
+//                    steps with a compile-time trip count, then the rest one
+//                    step at a time (19 check steps: 9 x 2 + 1 at U = 2,
+//                    4 x 4 + 3 at U = 4, 1 x 19 at U = 19), as JAX's
+//                    fori_loop(unroll=U); the steps stay a runtime argument
+//                    and U changes no arithmetic
 // Every instance decides LQ = Lci + (sum of all edges' Lr, rounded as RND;
 // hilo: bf16) < 0 after `steps` check steps.
 //
@@ -73,7 +85,7 @@ constexpr int kFillBits = 0x7F7FFFFF;                 // FLT_MAX's bits
 
 enum Check { kExcl, kArgmin, kHalf, kBits };
 enum Var { kGram, kOwn, kSplit, kSplitAll, kInt8, kGram16 };
-enum Rnd { kF32, kBf16, kHilo };
+enum Rnd { kF32, kBf16, kHilo, kHilo2 };
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -258,7 +270,7 @@ __device__ __forceinline__ void var_step(T* msg, const int8_t* qb,
 #pragma unroll
           for (int i = 0; i < kWcMax; ++i)
             if (i != k && i < Wc) acc = acc + agg_round<RND>(e[i]);
-          if constexpr (RND == kHilo) {
+          if constexpr (RND == kHilo || RND == kHilo2) {
 #pragma unroll
             for (int i = 0; i < kWcMax; ++i)
               if (i != k && i < Wc) acc = acc + bf16r(e[i] - bf16r(e[i]));
@@ -273,7 +285,8 @@ __device__ __forceinline__ void var_step(T* msg, const int8_t* qb,
   }
 }
 
-// Decision of variable j of frame f: Lci + (sum of its edges' Lr) < 0.
+// Decision of variable j of frame f: Lci + (sum of its edges' Lr) < 0;
+// kHilo2: every edge's hi, then every edge's lo.
 template <int RND, class T>
 __device__ __forceinline__ void var_decide(const T* msg, const float* r,
                                            const int* vs, int8_t* vh, int j,
@@ -285,10 +298,20 @@ __device__ __forceinline__ void var_decide(const T* msg, const float* r,
     const int s = k < Wc ? vs[j * Wc + k] : -1;
     if (k < Wc) tot = tot + (s >= 0 ? agg_round<RND>(ld(&msg[s * F + f])) : 0.f);
   }
+  if constexpr (RND == kHilo2) {
+#pragma unroll
+    for (int k = 0; k < kWcMax; ++k) {
+      const int s = k < Wc ? vs[j * Wc + k] : -1;
+      if (k < Wc) {
+        const float x = s >= 0 ? ld(&msg[s * F + f]) : 0.f;
+        tot = tot + bf16r(x - bf16r(x));
+      }
+    }
+  }
   vh[j * (F + 1) + f] = r[j * (F + 1) + f] + tot < 0.f;
 }
 
-template <int CHECK, int VAR, int RND>
+template <int CHECK, int VAR, int RND, int UNROLL>
 int smem_of(int M, int N, int Wc) {
   constexpr int F = kLanes;
   const int E = kWr * M;
@@ -296,7 +319,21 @@ int smem_of(int M, int N, int Wc) {
          N * (F + 1) + (VAR == kInt8 ? E * F : 0);
 }
 
-template <int CHECK, int VAR, int RND>
+// One full step: the check step (kInt8: writing q), then every variable's
+// next Lq.
+template <int CHECK, int VAR, int RND, class T>
+__device__ __forceinline__ void ms_step(T* msg, int8_t* qb, const float* r,
+                                       const int* sv, const int* vs, int M,
+                                       int N, int Wc, int f, int y, float pad) {
+  int8_t* q = VAR == kInt8 ? qb : nullptr;
+  for (int m = y; m < M; m += kRows) check_step<CHECK>(msg, q, sv, m, M, f, pad);
+  __syncthreads();
+  for (int j = y; j < N; j += kRows)
+    var_step<VAR, RND>(msg, qb, r, vs, j, Wc, f);
+  __syncthreads();
+}
+
+template <int CHECK, int VAR, int RND, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
 study_ms_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
                 const int* __restrict__ slot_var,
@@ -334,8 +371,20 @@ study_ms_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
   __syncthreads();
 
+  static_assert(UNROLL >= 1, "UNROLL counts steps");
   const float pad = VAR == kGram16 ? bf16r(kPadBig) : kPadBig;
-  for (int it = 0; it < steps; ++it) {
+  // UNROLL > 1: blocks of UNROLL full steps with a compile-time trip count,
+  // which nvcc unrolls, while a whole block ends before the last step; then
+  // the rest one step at a time, as at UNROLL = 1
+  int it = 0;
+  if constexpr (UNROLL > 1) {
+    for (; it + UNROLL < steps; it += UNROLL) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        ms_step<CHECK, VAR, RND>(msg, qb, r, sv, vs, M, N, Wc, f, y, pad);
+    }
+  }
+  for (; it < steps; ++it) {
     const bool last = it + 1 == steps;
     int8_t* q = VAR == kInt8 && !last ? qb : nullptr;
     for (int m = y; m < M; m += kRows)
@@ -351,7 +400,7 @@ study_ms_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     for (int e = y; e < E; e += kRows) st(&msg[e * F + f], 0.f);
     __syncthreads();
   }
-  constexpr int kFinal = RND == kHilo ? kBf16 : RND;   // one bf16 pass
+  constexpr int kFinal = RND == kHilo ? kBf16 : RND;   // hilo: one bf16 pass
   for (int j = y; j < N; j += kRows)
     var_decide<kFinal>(msg, r, vs, vh, j, Wc, f);
   __syncthreads();
@@ -362,20 +411,20 @@ study_ms_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
 }
 
-template <int CHECK, int VAR, int RND>
+template <int CHECK, int VAR, int RND, int UNROLL>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
                    const int* var_slots, int M, int N, int Wc, int steps,
                    cudaStream_t stream) {
-  const int smem = smem_of<CHECK, VAR, RND>(M, N, Wc);
+  const int smem = smem_of<CHECK, VAR, RND, UNROLL>(M, N, Wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        study_ms_kernel<CHECK, VAR, RND>,
+        study_ms_kernel<CHECK, VAR, RND, UNROLL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((B + kLanes - 1) / kLanes));
   const dim3 block(kLanes, kRows);
-  study_ms_kernel<CHECK, VAR, RND><<<grid, block, smem, stream>>>(
+  study_ms_kernel<CHECK, VAR, RND, UNROLL><<<grid, block, smem, stream>>>(
       rx, out, B, slot_var, var_slots, M, N, Wc, steps);
   return cudaGetLastError();
 }
@@ -384,26 +433,31 @@ using Launcher = cudaError_t (*)(const float*, int8_t*, int, const int*,
                                  const int*, int, int, int, int, cudaStream_t);
 using SmemFn = int (*)(int, int, int);
 struct Instance {
-  int check, var, rnd;
+  int check, var, rnd, unroll;
   Launcher launch;
   SmemFn smem;
 };
 
 // The instantiated templates. ops/cuda_study_ms.py names them and finds each
-// by its three arguments (bp_study_ms_find); the enums' numbering is its
+// by its four arguments (bp_study_ms_find); the enums' numbering is its
 // CHECKS, VARS and RNDS.
 #define STUDY(...) {__VA_ARGS__, launch<__VA_ARGS__>, smem_of<__VA_ARGS__>}
 const Instance kInstances[] = {
-    STUDY(kExcl, kGram, kF32),          // study_ms_ref
-    STUDY(kArgmin, kSplitAll, kBf16),   // study_ms_argmin
-    STUDY(kExcl, kGram, kBf16),         // study_ms_current
-    STUDY(kHalf, kGram, kBf16),         // study_ms_stub_check
-    STUDY(kExcl, kOwn, kBf16),          // study_ms_stub_mm
-    STUDY(kBits, kGram, kBf16),         // study_ms_bits
-    STUDY(kExcl, kGram16, kBf16),       // study_ms_bf16
-    STUDY(kExcl, kInt8, kBf16),         // study_ms_int8
-    STUDY(kExcl, kSplit, kBf16),        // study_ms_split
-    STUDY(kExcl, kGram, kHilo),         // study_ms_hilo
+    STUDY(kExcl, kGram, kF32, 1),          // study_ms_ref
+    STUDY(kArgmin, kSplitAll, kBf16, 1),   // study_ms_argmin
+    STUDY(kExcl, kGram, kBf16, 1),         // study_ms_current
+    STUDY(kHalf, kGram, kBf16, 1),         // study_ms_stub_check
+    STUDY(kExcl, kOwn, kBf16, 1),          // study_ms_stub_mm
+    STUDY(kBits, kGram, kBf16, 1),         // study_ms_bits
+    STUDY(kExcl, kGram16, kBf16, 1),       // study_ms_bf16
+    STUDY(kExcl, kInt8, kBf16, 1),         // study_ms_int8
+    STUDY(kExcl, kSplit, kBf16, 1),        // study_ms_split
+    STUDY(kExcl, kGram, kHilo, 1),         // study_ms_hilo
+    STUDY(kExcl, kGram, kBf16, 2),         // study_ms_current_u2
+    STUDY(kExcl, kGram, kBf16, 4),         // study_ms_current_u4
+    STUDY(kExcl, kGram, kBf16, 19),        // study_ms_current_u19
+    STUDY(kExcl, kGram, kHilo2, 1),        // study_ms_hilo2
+    STUDY(kExcl, kGram, kHilo2, 19),       // study_ms_hilo2_u19
 };
 #undef STUDY
 constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);
@@ -412,11 +466,12 @@ constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);
 
 extern "C" {
 
-// Index of the instance study_ms_kernel<check, var, rnd>, or -1.
-int bp_study_ms_find(int check, int var, int rnd) {
+// Index of the instance study_ms_kernel<check, var, rnd, unroll>, or -1.
+int bp_study_ms_find(int check, int var, int rnd, int unroll) {
   for (int i = 0; i < kCount; ++i) {
     const Instance& s = kInstances[i];
-    if (s.check == check && s.var == var && s.rnd == rnd) return i;
+    if (s.check == check && s.var == var && s.rnd == rnd && s.unroll == unroll)
+      return i;
   }
   return -1;
 }

@@ -110,8 +110,9 @@ def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
                    i, i, i,     # M, N, Wc
                    i,           # check steps
                    p],          # cudaStream_t
-               # bp_study: check, agg, fpt, stubs; bp_study_ms: check, var, rnd
-               f"{name}_find": [i] * (4 if name == "bp_study" else 3),
+               # bp_study: check, agg, fpt, stubs, unroll; bp_study_ms:
+               # check, var, rnd, unroll
+               f"{name}_find": [i] * (5 if name == "bp_study" else 4),
                f"{name}_smem_bytes": [i] * 4,
                f"{name}_error_string": [i]}
     else:

@@ -58,6 +58,7 @@ import torch
 
 from ..codes import LdpcCode
 
+from .decode import _others_sum
 from .layout import PAD_BIG, check_major_tables, edge_slots, wmajor_tables
 
 __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
@@ -448,6 +449,10 @@ def _decode_exact_plain(rx: torch.Tensor, code: LdpcCode, iterations: int,
             rcum = _running(x, torch.add, reverse=True)
             vm = torch.stack([(cum[v] - x[:, :, v]) + (rcum[v] - x[:, :, v])
                               for v in range(t.Wc)], 2)
+            # a variable whose sum is not finite (inf - inf at a saturated
+            # slot): every slot takes the sum of the others
+            vm = torch.where(torch.isfinite(cum[-1])[:, :, None], vm,
+                             _others_sum(x))
         else:
             vm = (r + cum[-1])[:, :, None] - x
         msg = _append(vm.reshape(B, -1), 0.0)[:, d.cm_from_vm]

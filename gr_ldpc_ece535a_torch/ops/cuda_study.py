@@ -16,6 +16,9 @@ The counterpart of the Pallas kernels of the TPU prototype study:
   tools/proto_r3.py:110      sumprod_kernel        phi, hi/lo aggregation
   tools/proto_r3.py:225      sumprod_kernel_v2     phi and psprod1p, hi/lo
                                                    aggregation and decision
+  tools/proto_r3c.py:30      kernel("sumprod", k)  textbook SPA, unrolled
+  tools/proto_r4.py:38       kernel("sumprod", ..) hilo2 (precise) and bf16all
+                                                   (fast), unrolled
 
 Each variant of those scripts maps onto one compile-time instance, named in
 ``INSTANCES`` by its parts. A product that the TPU ran at precision DEFAULT
@@ -58,12 +61,21 @@ rounded its f32 operand to bf16 and summed in f32; HIGHEST is exact:
                       differences of the three, so one instance stands for
                       them); the decision's sum of bf16(E), one pass
          hilo2        hilo with the decision's sum in hilo too (v2)
+         textbook     proto_r3c's "sumprod": the loop's base is r, so r enters
+                      once, not (deg - 1) times; bf16 operands, f32 sums; the
+                      decision r + (sum of bf16(E)) < 0. Not the reference's
+                      SPA: no shipped mode uses it
   fpt    1 or 2       frames a thread: 2 is the Hopper form of proto_r3b's
                       "skew" variants (two independent chains for ILP), with
                       per-frame arithmetic equal to fpt = 1
+  unroll 1, 2, 4, 19  the w-major step loop in blocks of that many steps
+                      with a compile-time trip count (fori_loop's unroll);
+                      the arithmetic is unroll 1's, so the plain version
+                      ignores it
 
 Two loop forms. W-major (every check but tanhprod_cm): steps-1 full steps
-M = base + aggregation, a trailing check step, decision sum(E) + deg*r <= 0,
+M = base + aggregation, a trailing check step, decision sum(E) + deg*r <= 0
+(textbook: r + sum(E) < 0),
 as the shipped tile kernel (the JAX forms' last variable update is dead);
 pad slots keep PAD_BIG and are never read. Check-major (tanhprod_cm): each
 of ``steps`` iterations runs the check step, L = aggregation(E) + deg*r and
@@ -103,7 +115,8 @@ LANES = 32                     # frames a block holds per frame of a thread
 # C++ enums of bp_study.cu, in declaration order
 CHECKS = ("phi", "explog", "tanhprod_wm", "tanhprod_cm", "stub", "psprod",
           "psprod1p")
-AGGS = ("f32", "bf16", "none", "split", "bf16all", "hilo", "hilo2")
+AGGS = ("f32", "bf16", "none", "split", "bf16all", "hilo", "hilo2",
+        "textbook")
 STUB_BITS = {"no_tanh": 1, "no_excl": 2, "no_log": 4}
 # psprod's clip: proto_r2's 0.9999999 and proto_r3's 0.999999881 are both
 # this f32, 1 - 2^-23 (bp_study.cu kClip)
@@ -112,7 +125,7 @@ PSPROD_CLIP = 1.0 - 2.0 ** -23
 _SUMS = {"f32": ("f32", "f32"), "bf16": ("bf16", "f32"),
          "none": ("f32", "f32"), "split": ("bf16", "bf16"),
          "bf16all": ("bf16", "bf16"), "hilo": ("hilo", "bf16"),
-         "hilo2": ("hilo", "hilo")}
+         "hilo2": ("hilo", "hilo"), "textbook": ("bf16", "bf16")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +134,7 @@ class StudySpec:
     agg: str = "f32"
     fpt: int = 1
     stubs: frozenset = frozenset()
+    unroll: int = 1
 
     @property
     def check_major(self) -> bool:
@@ -156,21 +170,28 @@ INSTANCES = {
     "study_phi_hilo": StudySpec("phi", "hilo"),
     "study_phi_hilo2": StudySpec("phi", "hilo2"),
     "study_psprod1p": StudySpec("psprod1p", "hilo2"),
+    "study_phi_textbook": StudySpec("phi", "textbook"),
+    "study_phi_textbook_u2": StudySpec("phi", "textbook", unroll=2),
+    "study_phi_textbook_u4": StudySpec("phi", "textbook", unroll=4),
+    "study_phi_hilo2_u19": StudySpec("phi", "hilo2", unroll=19),
+    "study_phi_bf16all_u19": StudySpec("phi", "bf16all", unroll=19),
 }
 # instance -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
 LAUNCHES = dict.fromkeys(INSTANCES, 0)
 
 
-def template_args(spec: StudySpec) -> tuple[int, int, int, int]:
-    """(CHECK, AGG, FPT, STUBS) of the kernel template this spec names."""
+def template_args(spec: StudySpec) -> tuple[int, int, int, int, int]:
+    """(CHECK, AGG, FPT, STUBS, UNROLL) of the kernel template this spec
+    names."""
     return (CHECKS.index(spec.check), AGGS.index(spec.agg), spec.fpt,
-            sum(STUB_BITS[s] for s in spec.stubs))
+            sum(STUB_BITS[s] for s in spec.stubs), spec.unroll)
 
 
 def instance_of(symbol: str) -> str | None:
     """The instance whose kernel a mangled symbol names (as ptxas and
     cuobjdump print it), or None."""
-    m = re.search(r"study_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", symbol)
+    m = re.search(r"study_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                  symbol)
     if m is None:
         return None
     args = tuple(int(a) for a in m.groups())
@@ -301,7 +322,8 @@ def _wm_plain(rx: torch.Tensor, code: LdpcCode, steps: int,
     d = _dev_tables(code, rx.device)
     Wc = d.t.Wc
     r = -rx
-    base = (d.deg - 1.0) * r
+    textbook = spec.agg == "textbook"
+    base = r if textbook else (d.deg - 1.0) * r
     degr = d.deg * r
     pad = (d.slot_var == code.N)[None, :]
     check = _WM_CHECKS[spec.check]
@@ -328,7 +350,8 @@ def _wm_plain(rx: torch.Tensor, code: LdpcCode, steps: int,
             msg = _append(vm, float(PAD_BIG))[:, d.slot_vmpos]
     cm = check(msg, d) if steps > 0 else torch.zeros_like(msg)
     Eg = _append(cm, 0.0)[:, d.var_slots]
-    return (final([Eg[:, :, k] for k in range(Wc)]) + degr <= 0).to(torch.int8)
+    tot = final([Eg[:, :, k] for k in range(Wc)])
+    return (r + tot < 0 if textbook else tot + degr <= 0).to(torch.int8)
 
 
 def _cm_plain(rx: torch.Tensor, code: LdpcCode, steps: int,

@@ -7,6 +7,9 @@ The counterpart of the Pallas kernels of the TPU prototype study:
                                                    check step, split update
   tools/proto_r2.py:80            minsum_kernel    seven min-sum variants
   tools/proto_r3.py:78            minsum_kernel    hi/lo aggregation
+  tools/proto_r3c.py:30           kernel("minsum") current, unrolled
+  tools/proto_r4.py:38            kernel("minsum") hilo2 (precise) and current
+                                                   (fast), unrolled
 
 Each variant maps onto one compile-time instance, named in ``INSTANCES`` by
 what it computes (where the TPU computed a one-hot product at precision
@@ -39,6 +42,11 @@ DEFAULT, its f32 operand was rounded to bf16 and the sum taken in f32):
                     "stacked16" order; "precise2" sums the two halves apart,
                     the only difference of the three, so one instance stands
                     for them); the final sum is a single bf16 pass
+         hilo2      hilo with the decision's sum in hi/lo too: every edge's
+                    hi, then every edge's lo (proto_r4's precise min-sum)
+  unroll            1, 2, 4 or 19: the step loop in blocks of that many steps
+                    with a compile-time trip count (fori_loop's unroll); the
+                    arithmetic is unroll 1's, so the plain version ignores it
 
 Every instance runs ``steps`` check steps with a variable update between
 them and decides LQ = Lci + (sum of all edges' Lr, rounded as the
@@ -67,6 +75,7 @@ from ..codes import LdpcCode
 from .cuda_bp import (SMEM_MAX, WC_MAX, _append, _check_args, _check_minsum,
                       _dev_tables, _excl_min, _sign, _tree, _var_gather,
                       tile_bytes)
+from .cuda_study import _total
 from .layout import PAD_BIG, wmajor_tables
 
 __all__ = ["StudyMsSpec", "INSTANCES", "LAUNCHES", "STUDY_WR",
@@ -79,7 +88,7 @@ LANES = 32                     # frames a block
 # C++ enums of bp_study_ms.cu, in declaration order
 CHECKS = ("excl", "argmin", "half", "bits")
 VARS = ("gram", "own", "split", "split_all", "int8", "gram16")
-RNDS = ("f32", "bf16", "hilo")
+RNDS = ("f32", "bf16", "hilo", "hilo2")
 QS = float(np.float32(127.0 / 24.0))    # the int8 grid; exact in f32
 DQ = float(np.float32(24.0 / 127.0))
 _SIGN = -2 ** 31                        # int32 0x80000000
@@ -92,6 +101,7 @@ class StudyMsSpec:
     check: str
     var: str = "gram"
     rnd: str = "bf16"
+    unroll: int = 1
 
 
 # instance name -> spec; the kernel is bp_study_ms.cu's template of the
@@ -107,21 +117,27 @@ INSTANCES = {
     "study_ms_int8": StudyMsSpec("excl", "int8"),
     "study_ms_split": StudyMsSpec("excl", "split"),
     "study_ms_hilo": StudyMsSpec("excl", "gram", "hilo"),
+    "study_ms_current_u2": StudyMsSpec("excl", unroll=2),
+    "study_ms_current_u4": StudyMsSpec("excl", unroll=4),
+    "study_ms_current_u19": StudyMsSpec("excl", unroll=19),
+    "study_ms_hilo2": StudyMsSpec("excl", "gram", "hilo2"),
+    "study_ms_hilo2_u19": StudyMsSpec("excl", "gram", "hilo2", 19),
 }
 # instance -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
 LAUNCHES = dict.fromkeys(INSTANCES, 0)
 
 
-def template_args(spec: StudyMsSpec) -> tuple[int, int, int]:
-    """(CHECK, VAR, RND) of the kernel template this spec names."""
+def template_args(spec: StudyMsSpec) -> tuple[int, int, int, int]:
+    """(CHECK, VAR, RND, UNROLL) of the kernel template this spec names."""
     return (CHECKS.index(spec.check), VARS.index(spec.var),
-            RNDS.index(spec.rnd))
+            RNDS.index(spec.rnd), spec.unroll)
 
 
 def instance_of(symbol: str) -> str | None:
     """The instance whose kernel a mangled symbol names (as ptxas and
     cuobjdump print it), or None."""
-    m = re.search(r"study_ms_kernelILi(\d+)ELi(\d+)ELi(\d+)E", symbol)
+    m = re.search(r"study_ms_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                  symbol)
     if m is None:
         return None
     args = tuple(int(a) for a in m.groups())
@@ -239,14 +255,15 @@ def _var_step(lr: torch.Tensor, lci: torch.Tensor, d, spec: StudyMsSpec,
             A = agg(lci + tot)
             cols = [A - Eg[:, :, k] for k in range(Wc)]
         else:
-            hi = _bf if spec.rnd == "hilo" else agg
+            hilo = spec.rnd in ("hilo", "hilo2")
+            hi = _bf if hilo else agg
             cols = []
             for k in range(Wc):
                 acc = torch.zeros_like(lci)
                 for i in range(Wc):
                     if i != k:
                         acc = acc + hi(Eg[:, :, i])
-                if spec.rnd == "hilo":
+                if hilo:
                     for i in range(Wc):
                         if i != k:
                             acc = acc + lo(Eg[:, :, i])
@@ -261,7 +278,8 @@ def study_ms_plain(instance: str, rx: torch.Tensor, code: LdpcCode,
     """Plain PyTorch version of a min-sum study instance, on rx's device.
     ``exact`` names the TPU's DEFAULT products to take in f32 instead, as
     JAX on the CPU computes them: "loop" (the gathers and aggregations of
-    the iterations, and hilo's lo half) and "final" (the decision's sum)."""
+    the iterations, and hilo's lo half) and "final" (the decision's sum,
+    and hilo2's lo half there)."""
     spec = _spec(instance)
     _check_study(instance, rx, code, steps)
     d = _dev_tables(code, rx.device)
@@ -286,7 +304,12 @@ def study_ms_plain(instance: str, rx: torch.Tensor, code: LdpcCode,
         lr = check(msg, d)
         if it + 1 < steps:             # the last update is dead
             msg = _var_step(lr, lci, d, spec, agg, lo, pad)
-    tot = _var_gather(final(lr), d)[0]
+    if spec.rnd == "hilo2":        # every edge's hi, then every edge's lo
+        Eg = _var_gather(lr, d)[1]
+        tot = _total([Eg[:, :, k] for k in range(d.t.Wc)], "hilo",
+                     "final" in exact)
+    else:
+        tot = _var_gather(final(lr), d)[0]
     return (lci + tot < 0).to(torch.int8)
 
 

@@ -77,12 +77,33 @@ def _gather_cm(x_vm: torch.Tensor, t) -> torch.Tensor:
     return _gather(x_vm.reshape(x_vm.shape[0], -1), t.cm_from_vm)
 
 
+def _others_sum(x: torch.Tensor) -> torch.Tensor:
+    """For each slot of the last axis, the sum of the other slots, from 0 in
+    axis order."""
+    W = x.shape[-1]
+    cols = []
+    for k in range(W):
+        acc = torch.zeros_like(x[..., 0])
+        for i in range(W):
+            if i != k:
+                acc = acc + x[..., i]
+        cols.append(acc)
+    return torch.stack(cols, -1)
+
+
 def _excl_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis excluding self, via exclusive prefix+suffix sums."""
-    pre = torch.cumsum(x, -1) - x
+    """Sum over the last axis excluding self, via exclusive prefix+suffix sums.
+
+    Where a row's sum is not finite (a saturated operand, +-inf, forms
+    inf - inf in the running sums), every slot of the row takes the sum of
+    the others instead (_others_sum): the saturated message then reaches
+    the other slots as +-inf, not as NaN. Rows with a finite sum keep the
+    running-sum form bit for bit."""
+    cum = torch.cumsum(x, -1)
     rev = torch.flip(x, (-1,))
     suf = torch.flip(torch.cumsum(rev, -1) - rev, (-1,))
-    return pre + suf
+    return torch.where(torch.isfinite(cum[..., -1:]), (cum - x) + suf,
+                       _others_sum(x))
 
 
 def _excl_prod(x: torch.Tensor) -> torch.Tensor:

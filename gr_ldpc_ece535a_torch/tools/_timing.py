@@ -141,14 +141,21 @@ def study_row(tag: str, variant: str, instance: str, run, plain,
     return row
 
 
-def cli(main, doc: str, v2=None) -> None:
-    """``python -m ...tools.<script> [--device cpu|cuda] [--frames N]``, and
-    ``--v2`` to run ``v2`` instead of ``main`` where the script has one."""
+def cli(main, doc: str, v2=None, specs=None, argv=None) -> None:
+    """``python -m ...tools.<script> [--device cpu|cuda] [--frames N]``;
+    ``--v2`` to run ``v2`` instead of ``main`` where the script has one; and
+    where ``specs`` names a script's specs, any of them as positional
+    arguments (all of them when none is given), passed to ``main`` as
+    ``specs``."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--frames", type=int, default=STUDY_FRAMES)
     if v2 is not None:
         ap.add_argument("--v2", action="store_true",
                         help=f"run {v2.__name__} instead of main")
-    a = ap.parse_args()
-    (v2 if getattr(a, "v2", False) else main)(a.device, a.frames)
+    if specs is not None:
+        ap.add_argument("specs", nargs="*", metavar="SPEC",
+                        help=f"any of {', '.join(specs)} (default: all)")
+    a = ap.parse_args(argv)
+    kw = {} if specs is None else {"specs": tuple(a.specs) or tuple(specs)}
+    (v2 if getattr(a, "v2", False) else main)(a.device, a.frames, **kw)

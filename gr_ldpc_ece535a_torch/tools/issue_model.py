@@ -45,7 +45,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["PIPES", "RATES", "sass_functions", "pair_region", "by_pipe",
+__all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
+           "by_pipe",
            "warp_executions", "issue_ms", "minsum_wavefronts", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
@@ -135,7 +136,8 @@ def issue_ms(counts: dict[str, int], executions: float, sms: int,
             for p in RATES}
 
 
-def _sass(lib: Path) -> str:
+def sass_dump(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library (cuobjdump beside nvcc)."""
     from ..ops._build import _nvcc
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")
     return subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -150,7 +152,7 @@ def _probe_sass() -> str:
     src.write_text(PROBE)
     subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
                    capture_output=True, text=True, check=True, timeout=300)
-    return _sass(lib)
+    return sass_dump(lib)
 
 
 def _smi(query: str) -> list[float]:
@@ -214,7 +216,7 @@ def main() -> dict:
           + " ".join(f"{o}:{n}" for o, n in
                      collections.Counter(pair).most_common()), flush=True)
     kernels = {}
-    for fn, ops in sass_functions(_sass(build()["bp_study"][0])).items():
+    for fn, ops in sass_functions(sass_dump(build()["bp_study"][0])).items():
         if inst := cuda_study.instance_of(fn):
             kernels[inst] = by_pipe(ops)
     for name in cuda_study.INSTANCES:
@@ -251,7 +253,8 @@ def main() -> dict:
     # the min-sum study: static mix, times, and the wavefront model
     from ..ops import cuda_study_ms
     ms_kernels = {}
-    for fn, ops in sass_functions(_sass(build()["bp_study_ms"][0])).items():
+    ms_sass = sass_functions(sass_dump(build()["bp_study_ms"][0]))
+    for fn, ops in ms_sass.items():
         if inst := cuda_study_ms.instance_of(fn):
             c = collections.Counter(ops)
             ms_kernels[inst] = {**by_pipe(ops), **{o: c[o] for o in

@@ -109,7 +109,9 @@ def test_exact_zero_iterations_decide_r(kind):
 def test_exact_saturating_input_follows_the_f32_path(kind, iters):
     """rx = +-30 x codeword: tanh(15) rounds to 1, so T = +-1 and E = +-inf.
     The port's exact decoders give the port's f32 path's decisions there
-    (gathers, no 0*inf); see test_jax_paths_saturate below for the JAX side."""
+    (gathers, no 0*inf), and both return the codeword at every iteration
+    count: the exclusive sum takes the others' sum where cum - x is inf -
+    inf. See test_jax_paths_saturate below for the JAX side."""
     code = get_code("block_32_64")
     _, u = _codewords(code, 64, seed=5)
     rx = (30.0 * (2.0 * u - 1.0)).astype(np.float32)
@@ -117,8 +119,31 @@ def test_exact_saturating_input_follows_the_f32_path(kind, iters):
     t = torch.from_numpy(rx)
     got = mine(t, code, iters).numpy()
     np.testing.assert_array_equal(got, f32(t, code, iters, early_exit=False).numpy())
-    if kind == "minsum" or iters == 1:
-        np.testing.assert_array_equal(got, u)   # the codeword comes back
+    np.testing.assert_array_equal(got, u)   # the codeword comes back
+
+
+def test_excl_sum_with_an_infinite_operand():
+    """Finite rows keep (cum - x) + (rcum - x) bit for bit; a row with one
+    +-inf gives its own slot the others' sum and every other slot +-inf,
+    where the running sums form inf - inf = NaN."""
+    from gr_ldpc_ece535a_torch.ops.decode import _excl_sum
+    x = torch.tensor([[0.1, 0.2, 0.3],
+                      [float("inf"), 1.5, -2.0],
+                      [3.0, float("-inf"), 0.25]])
+    pre = torch.cumsum(x, -1) - x
+    rev = torch.flip(x, (-1,))
+    running = pre + torch.flip(torch.cumsum(rev, -1) - rev, (-1,))
+    assert torch.isnan(running[1:]).any()
+    got = _excl_sum(x)
+    assert torch.equal(got[0], running[0])
+    assert got[1].tolist() == [1.5 + -2.0, float("inf"), float("inf")]
+    assert got[2].tolist() == [float("-inf"), 3.0 + 0.25, float("-inf")]
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy(rng.standard_normal((64, 5, 4)).astype(np.float32))
+    pre = torch.cumsum(y, -1) - y
+    rev = torch.flip(y, (-1,))
+    assert torch.equal(_excl_sum(y),
+                       pre + torch.flip(torch.cumsum(rev, -1) - rev, (-1,)))
 
 
 def test_jax_paths_saturate():

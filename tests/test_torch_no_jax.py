@@ -43,7 +43,8 @@ def test_scan_covers_the_port():
             "tools/ablate_pallas.py", "tools/proto_r3b.py",
             "tools/proto_r4b.py", "tools/issue_model.py",
             "tools/fast_kernel_proto.py", "tools/proto_r2.py",
-            "tools/proto_r3.py", "codes/__init__.py", "codes/ldpc.py",
+            "tools/proto_r3.py", "tools/proto_r3c.py", "tools/proto_r4.py",
+            "codes/__init__.py", "codes/ldpc.py",
             "codes/_h_data.py"} <= names
 
 

@@ -178,21 +178,23 @@ def test_each_instance_names_its_own_kernel():
     """The library finds an instance's kernel by its template arguments, so
     no two instances share them, and a kernel's mangled symbol names its
     instance back; stubs exist on the check-major form only, and two frames
-    a thread on the w-major phi and explog steps."""
+    a thread on the w-major phi and explog steps; an unroll on the w-major
+    form only."""
     args = {n: cuda_study.template_args(s)
             for n, s in cuda_study.INSTANCES.items()}
     assert len(set(args.values())) == len(args)
-    for name, (check, agg, fpt, stubs) in args.items():
+    for name, (check, agg, fpt, stubs, unroll) in args.items():
         spec = cuda_study.INSTANCES[name]
         assert check < len(cuda_study.CHECKS) and agg < len(cuda_study.AGGS)
         assert stubs == 0 or spec.check_major, name
         assert fpt == 1 or spec.check in ("phi", "explog"), name
         assert 0 <= stubs < 2 ** len(cuda_study.STUB_BITS), name
+        assert unroll == 1 or not spec.check_major, name
         symbol = (f"_ZN12_GLOBAL__N_112study_kernelILi{check}ELi{agg}ELi{fpt}"
-                  f"ELi{stubs}EEEvPKfPaiPKiS5_iiii")
+                  f"ELi{stubs}ELi{unroll}EEEvPKfPaiPKiS5_iiii")
         assert cuda_study.instance_of(f"Function : {symbol}") == name
     assert cuda_study.instance_of("_Z9bp_kernelILi6ELb1ELi32ELi8EEvPKf") is None
-    assert cuda_study.instance_of("study_kernelILi4ELi2ELi2ELi7E") is None
+    assert cuda_study.instance_of("study_kernelILi4ELi2ELi2ELi7ELi1E") is None
 
 
 def test_smem_plan():

@@ -35,7 +35,8 @@ from jax.experimental import pallas as pl
 from gr_ldpc_ece535a_tpu.codes import get_code
 from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study_ms
 from gr_ldpc_ece535a_torch.ops.decode import syndrome_ok
-from gr_ldpc_ece535a_torch.tools import fast_kernel_proto, proto_r2, proto_r3
+from gr_ldpc_ece535a_torch.tools import (fast_kernel_proto, proto_r2, proto_r3,
+                                         proto_r3c, proto_r4)
 
 ROOT = Path(__file__).resolve().parents[1]
 FRAMES = 256
@@ -214,21 +215,24 @@ def test_each_instance_names_its_own_kernel():
     instance back."""
     args = {n: cuda_study_ms.template_args(s)
             for n, s in cuda_study_ms.INSTANCES.items()}
-    assert len(set(args.values())) == len(args) == 10
-    for name, (check, var, rnd) in args.items():
+    assert len(set(args.values())) == len(args) == 15
+    for name, (check, var, rnd, unroll) in args.items():
         symbol = (f"_ZN12_GLOBAL__N_115study_ms_kernelILi{check}ELi{var}"
-                  f"ELi{rnd}EEEvPKfPaiPKiS5_iiii")
+                  f"ELi{rnd}ELi{unroll}EEEvPKfPaiPKiS5_iiii")
         assert cuda_study_ms.instance_of(f"Function : {symbol}") == name
     assert cuda_study_ms.instance_of(
-        "_ZN12_GLOBAL__N_112study_kernelILi0ELi0ELi1ELi0EEEvPKf") is None
-    assert cuda_study_ms.instance_of("study_ms_kernelILi3ELi5ELi2E") is None
+        "_ZN12_GLOBAL__N_112study_kernelILi0ELi0ELi1ELi0ELi1EEEvPKf") is None
+    assert cuda_study_ms.instance_of("study_ms_kernelILi3ELi5ELi2ELi1E") is None
 
 
 def test_every_variant_has_an_instance():
     assert {fast_kernel_proto.VARIANTS["ms"]} | set(
         proto_r2.VARIANTS["minsum"].values()) | set(
         proto_r3.VARIANTS["minsum"].values()) | {
-        proto_r2.REF["minsum"]} == set(cuda_study_ms.INSTANCES)
+        proto_r2.REF["minsum"]} | set(
+        proto_r3c.VARIANTS["minsum"].values()) | {
+        i for (kind, _), v in proto_r4.VARIANTS.items() if kind == "minsum"
+        for i in v.values()} == set(cuda_study_ms.INSTANCES)
     ms = proto_r2.VARIANTS["minsum"]
     assert ms["int8s"] == ms["int8"]
     assert set(proto_r2.MAIN_VARIANTS["minsum"]) == set(ms) - {"int8s"}

@@ -275,14 +275,14 @@ def test_f32_products_turn_the_variants_into_their_yardsticks():
 def test_each_new_instance_names_its_own_kernel():
     args = {n: cuda_study.template_args(cuda_study.INSTANCES[n]) for n in NEW}
     assert len(set(args.values())) == len(NEW)
-    assert len(cuda_study.INSTANCES) == 22
-    for name, (check, agg, fpt, stubs) in args.items():
-        assert fpt == 1 and stubs == 0
+    assert len(cuda_study.INSTANCES) == 27
+    for name, (check, agg, fpt, stubs, unroll) in args.items():
+        assert fpt == 1 and stubs == 0 and unroll == 1
         symbol = (f"_ZN12_GLOBAL__N_112study_kernelILi{check}ELi{agg}ELi{fpt}"
-                  f"ELi{stubs}EEEvPKfPaiPKiS5_iiii")
+                  f"ELi{stubs}ELi{unroll}EEEvPKfPaiPKiS5_iiii")
         assert cuda_study.instance_of(f"Function : {symbol}") == name
-    assert args["study_psprod1p"] == (6, 6, 1, 0)
-    assert cuda_study.instance_of("study_kernelILi6ELi0ELi1ELi0E") is None
+    assert args["study_psprod1p"] == (6, 6, 1, 0, 1)
+    assert cuda_study.instance_of("study_kernelILi6ELi0ELi1ELi0ELi1E") is None
 
 
 def test_the_scripts_variants_cover_the_instances():
