@@ -10,19 +10,29 @@ Phases, each of which raises on a miss:
               gr_ldpc_ece535a_torch/_build/; prints ptxas's summary; counts
               each study kernel's static SASS instructions (cuobjdump) and
               fails unless every unrolled instance has more than its
-              unroll-1 sibling
+              unroll-1 sibling; the SASS of the w-major SPA kernels'
+              log tanh(x/2) (bp_phi_probe) by pipe, and how many blocks of
+              each w-major tile an SM holds (occupancy)
+  phi      the SPA kernels' log tanh(x/2) alone on the card, on 10^5 points
+              in [2^-20, 40] and at 0, 1e-30, 87, 88, 1e30, inf and NaN,
+              against float64: |error| <= max(2^-16 |phi|, 2^-20), beside
+              the error of libm's f32 logf(tanhf)
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
               rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
               iterations, both methods x both modes x both forms, plus edge
-              cases; the exact kernels there (0 mismatching frames) and
+              cases; the tile SPA against the f32 path of ops/decode.py
+              under early exit (no two different valid codewords); the
+              exact kernels there (0 mismatching frames) and
               against the f32 path of ops/decode.py; the large-code kernels
               on gen_256_512 and gen_320_640; each sweep step's decoder on
               the rx that step draws, at the shapes of the sweeps of phase 4
               (sim_50_100 125,000 x 5, gen_256_512 131,072 x 20, early exit);
               impl="split" against the tile; every study instance at
               131,072 x 20 against its plain version, and the study variants
-              whose arithmetic is the shipped tile kernel's (or base's, or
-              explog's) against it, 0 mismatching frames; the SPA
+              whose arithmetic is study_phi's (the libm phi the shipped SPA
+              had before its SFU check step; or explog's) against it, 0
+              mismatching frames, and the shipped tile SPA against study_phi
+              (the fixed contract below); the SPA
               aggregation-precision instances also at 0 and 1 step and on a
               saturating rx (0), and their agreement with the shipped precise
               SPA (>= 99% for the bf16 and hi/lo phi forms); every min-sum
@@ -33,7 +43,18 @@ Phases, each of which raises on a miss:
               the saturating rx, each unrolled instance against its unroll-1
               sibling at 131,072 x 20 (0 mismatching frames each), and the
               textbook SPA's agreement and frame error share against the sent
-              codewords beside the shipped SPA's (no bar)
+              codewords beside the shipped SPA's (no bar).
+              The w-major kernels against their plain versions: identical
+              decisions (min-sum), or (SPA, whose log tanh runs on the SFU)
+              the precise contracts: early exit at most 0.1% of frames
+              mismatched and none two different valid codewords; fixed
+              iterations at least 99% frame agreement and syndrome-success
+              shares within 1%. At the early-exit shapes of MIRROR_WITNESS,
+              where the kernels take a few frames to a valid codeword other
+              than the plain version's, the kernel must also meet the
+              precise contract against the plain decoder on its own log
+              tanh algorithm in IEEE f32 (cuda_bp.log_tanh_half_mirror), and
+              that decoder must decide each such frame as the kernel does
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -53,14 +74,20 @@ Phases, each of which raises on a miss:
                           131,072 x 20, 4 dB; each times its variants'
                           kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
-              the whole forward and of each sweep point; the studies' tables
+              the whole forward and of each sweep point; the tile SPA
+              against study_phi and study_stub, interleaved; each SPA
+              kernel's MUFU floor (sfu_ms) at the SM clock it ran at; the
+              studies' tables
               (the SPA aggregation-precision rows as ratios to study_phi);
               the unroll table: each unrolled instance timed against its
               unroll-1 sibling in one interleaved run, with its SASS count,
               registers and spills
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
-(tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed.
+(tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
+the two w-major SPA records also carry sfu_ms: the MUFU instructions of
+their log tanh (counted in its SASS), two an edge and check step, at 16 a
+clock an SM.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -157,6 +184,13 @@ UNROLL_NEW = ("study_phi_textbook", "study_phi_textbook_u2",
               "study_ms_current_u4", "study_ms_current_u19", "study_ms_hilo2",
               "study_ms_hilo2_u19")
 TEXTBOOK = "study_phi_textbook"      # proto_r3c's sumprod: r enters once
+# (code, frames, Eb/N0 dB) of the early-exit comparisons at which the SFU
+# SPA kernels decide 1-2 frames as a valid codeword other than the IEEE
+# plain version's: the plain decoder on the kernels' own log tanh algorithm
+# in IEEE f32 decides those frames as the kernel does, so the difference is
+# the algorithm's, not the SFU's (phase 3 checks it there)
+MIRROR_WITNESS = {("gen_320_640", LARGE_FRAMES, 2.0),
+                  *(("gen_256_512", N_FRAMES, e) for e in LARGE_PTS)}
 
 
 def log(*args) -> None:
@@ -207,8 +241,8 @@ def main() -> int:
                                              proto_r3c, proto_r4, proto_r4b)
     from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
                                                      time_decode)
-    from gr_ldpc_ece535a_torch.tools.issue_model import (sass_dump,
-                                                         sass_functions)
+    from gr_ldpc_ece535a_torch.tools.issue_model import (
+        by_pipe, sass_dump, sass_functions, shipped_phi, under_load)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -271,8 +305,27 @@ def main() -> int:
         if not sass[name] > sass[sib]:
             raise AssertionError(f"{name}: no more code than {sib}; the "
                                  f"unroll is not in the kernel")
+    # the SPA kernels' log tanh(x/2): its SASS by pipe; its MUFU count sets
+    # their SFU floor (sfu_ms, phase 5)
+    phi_ops = shipped_phi(built["bp_wmajor"][0])
+    phi_mufu = phi_ops.count("MUFU")
+    log(f"[build] log_tanh_half (bp_wmajor.cu), SASS by pipe: "
+        f"{by_pipe(phi_ops)}: {' '.join(phi_ops)}")
+    if phi_mufu < 1 or "CALL" in phi_ops:
+        raise AssertionError("log_tanh_half calls out instead of the SFU")
     gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
            for m, n in ((200, 400), (256, 512), (320, 640))}
+    # blocks an SM of each w-major tile; the large-code kernel also on
+    # block_32_64 (impl="split", timed in phase 5 on the same slot count)
+    for c, tile in ((get_code("block_32_64"), "tile"), (gen[512], "large"),
+                    (get_code("block_32_64"), "large")):
+        for method in ("sumproduct", "minsum"):
+            blocks, warps = cuda_bp.occupancy(c, tile, method == "sumproduct")
+            smem = (cuda_bp.smem_bytes if tile == "tile"
+                    else cuda_bp.large_smem_bytes)(c)
+            log(f"[occupancy] {tile} {method} {c.name}, {smem} B of shared "
+                f"memory a block: {blocks} blocks of {warps} warps an SM "
+                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
                                     "sim_24_48", "sim_50_100")] + list(gen.values()):
         t, x = wmajor_tables(c), check_major_tables(c)
@@ -300,6 +353,45 @@ def main() -> int:
                     raise AssertionError(
                         f"smem plan of {n} differs for {c.name}: {got} {want}")
 
+    # -- phi: the SPA kernels' log tanh(x/2) against float64 ----------------
+    grid = np.geomspace(2.0 ** -20, 40.0, 100_000).astype(np.float32)
+    special = np.array([0.0, 1e-30, 87.0, 88.0, 1e30, np.inf, np.nan],
+                       np.float32)
+    xs = torch.from_numpy(np.concatenate([grid, special])).to(dev)
+    with np.errstate(divide="ignore"):          # log(0) = -inf at x = 0
+        phi_ref = np.log(np.tanh(xs.cpu().double().numpy() * 0.5))
+    phis = {"log_tanh_half (SFU)": cuda_bp.phi_probe(xs),
+            "libm logf(tanhf) f32": torch.log(torch.tanh(xs * 0.5))}
+    phis = {k: v.cpu().double().numpy() for k, v in phis.items()}
+    fin = np.isfinite(phi_ref)
+    rel = np.abs(phi_ref) >= 2.0 ** -4           # where the bar is relative
+    bar = np.where(fin, np.maximum(2.0 ** -16 * np.abs(phi_ref), 2.0 ** -20),
+                   np.inf)                      # specials: checked below
+    errs = {}
+    for name, y in phis.items():
+        with np.errstate(invalid="ignore"):      # -inf - -inf at x = 0
+            err = errs[name] = np.where(fin, np.abs(y - phi_ref), 0.0)
+        worst = int(np.argmax(err / bar))
+        log(f"[phi] {name} vs float64 on {grid.size} points in [2^-20, 40] "
+            f"and {special.size} special values: max relative error "
+            f"{(err[rel] / np.abs(phi_ref[rel])).max():.4e} where |phi| >= 1/16, "
+            f"max absolute {err[fin & ~rel].max():.4e} below; worst "
+            f"{err[worst] / bar[worst]:.4f} of the bar max(2^-16 |phi|, "
+            f"2^-20), at x = {float(xs[worst])!r}")
+    for i, x in enumerate(special.tolist()):
+        j = grid.size + i
+        log(f"[phi] x = {x!r}: " + ", ".join(
+            f"{name} {float(y[j])!r}" for name, y in phis.items())
+            + f", float64 {float(phi_ref[j])!r}")
+    y = phis["log_tanh_half (SFU)"]
+    sp = y[grid.size:]
+    if not ((errs["log_tanh_half (SFU)"] <= bar).all() and (y[fin] <= 0).all()
+            and sp[0] == -np.inf and (sp[2:6] == 0).all()
+            and np.isnan(sp[6])):
+        raise AssertionError("log_tanh_half misses float64 beyond its bar, "
+                             "or a special value")
+    del xs, phis
+
     kernels = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                "minsum": cuda_bp.cuda_decode_minsum}
     plains = {"sumproduct": cuda_bp.decode_sumproduct_plain,
@@ -312,38 +404,77 @@ def main() -> int:
         return make_inputs(code, B, torch.Generator(device=dev).manual_seed(seed),
                            dev, ebn0)
 
-    def compare(tag, vk, vp, code, early_exit, identical=False,
-                min_agree=None):
-        """Kernel vs plain: four-bin decomposition of the mismatched frames
-        (bench.py::_bench_parity), and the contract of the form: identical
-        decisions, or the early-exit / fixed contracts of the precise kernels,
-        or (min_agree) an agreement share with no two valid codewords."""
+    def bins(vk, vp, code):
+        """Four-bin decomposition of the mismatched frames
+        (bench.py::_bench_parity)."""
         B = vk.shape[0]
         diff = (vk != vp).any(1)
         ok_k, ok_p = syndrome_ok(vk, code.H), syndrome_ok(vp, code.H)
-        c = {"frames": B, "mismatch": int(diff.sum()),
-             "both_syndrome_fail": int((diff & ~ok_k & ~ok_p).sum()),
-             "both_valid_different": int((diff & ok_k & ok_p).sum()),
-             "only_plain_valid": int((diff & ok_p & ~ok_k).sum()),
-             "only_kernel_valid": int((diff & ok_k & ~ok_p).sum()),
-             "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
-             "succ_plain": float(ok_p.float().mean()) if B else 1.0}
+        return {"frames": B, "mismatch": int(diff.sum()),
+                "both_syndrome_fail": int((diff & ~ok_k & ~ok_p).sum()),
+                "both_valid_different": int((diff & ok_k & ok_p).sum()),
+                "only_plain_valid": int((diff & ok_p & ~ok_k).sum()),
+                "only_kernel_valid": int((diff & ok_k & ~ok_p).sum()),
+                "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
+                "succ_plain": float(ok_p.float().mean()) if B else 1.0}
+
+    def precise(c, early_exit):
+        """The early-exit / fixed contracts of the precise kernels."""
+        B = c["frames"]
+        if early_exit:
+            return (c["mismatch"] <= EE_MAX_MISMATCH * B
+                    and c["both_valid_different"] == 0)
+        return (B - c["mismatch"] >= FIXED_MIN_AGREE * B
+                and abs(c["succ_kernel"] - c["succ_plain"])
+                <= FIXED_MAX_SUCC_GAP)
+
+    def compare(tag, vk, vp, code, early_exit, identical=False,
+                min_agree=None, mirror=None, two_valid_only=False):
+        """Kernel vs plain: the four bins, and the contract of the form:
+        identical decisions, or (min_agree) an agreement share with no two
+        valid codewords, or (two_valid_only) no two valid codewords, or the
+        precise contracts. ``mirror()``, given at the shapes of
+        MIRROR_WITNESS, decodes the same rx with the plain decoder on the
+        kernels' own log tanh algorithm: there the kernel keeps the
+        mismatched share against the plain version, meets the precise
+        contract against that decoder, and that decoder decides each frame
+        on which the kernel and the plain version hold two different valid
+        codewords as the kernel does."""
+        B = vk.shape[0]
+        c = bins(vk, vp, code)
         log(f"[kernels] {tag}: {json.dumps(c)}")
         if identical:
             good = c["mismatch"] == 0
         elif min_agree is not None:
             good = (B - c["mismatch"] >= min_agree * B
                     and c["both_valid_different"] == 0)
-        elif early_exit:
-            good = (c["mismatch"] <= EE_MAX_MISMATCH * B
-                    and c["both_valid_different"] == 0)
+        elif two_valid_only:
+            good = c["both_valid_different"] == 0
         else:
-            good = (B - c["mismatch"] >= FIXED_MIN_AGREE * B
-                    and abs(c["succ_kernel"] - c["succ_plain"])
-                    <= FIXED_MAX_SUCC_GAP)
+            good = precise(c, early_exit)
+            if mirror is not None:
+                vm = mirror()
+                m = bins(vk, vm, code)
+                two = ((vk != vp).any(1) & syndrome_ok(vk, code.H)
+                       & syndrome_ok(vp, code.H))
+                other = int((two & (vk != vm).any(1)).sum())
+                good = (c["mismatch"] <= EE_MAX_MISMATCH * B
+                        and precise(m, early_exit) and other == 0)
+                log(f"[kernels] {tag}: against the plain decoder on the "
+                    f"kernels' log tanh in IEEE f32: {json.dumps(m)}; of the "
+                    f"{c['both_valid_different']} frames on two different "
+                    f"valid codewords above, {other} decided otherwise by it")
         if not good:
             raise AssertionError(f"kernel disagrees with its plain version: {tag}")
         return int((vk.int() - vp.int()).abs().max()) if B else 0
+
+    def mirror_of(method, rx, c, iters, early_exit, ebn0):
+        """The SPA mirror decoder for compare at the shapes of
+        MIRROR_WITNESS, else None."""
+        if (method != "sumproduct" or not early_exit
+                or (c.name, rx.shape[0], ebn0) not in MIRROR_WITNESS):
+            return None
+        return lambda: cuda_bp.decode_sumproduct_phi(rx, c, iters, True)
 
     def run_pair(method, rx, code, iters, early_exit, mode="precise", **kw):
         vk = kernels[method](rx, code, iters, mode=mode, early_exit=early_exit,
@@ -403,6 +534,27 @@ def main() -> int:
         compare(f"minsum norm_offset=0.5 "
                 f"{'early_exit' if early_exit else 'fixed'}", vk, vp, code,
                 early_exit)
+    # the inputs where log tanh meets its special values (0 -> -inf, the
+    # clamp, E = +-inf) decide as the plain version decides them
+    sat = 30.0 * bpsk_map(encode_bits(torch.randint(
+        0, 2, (64, code.K), generator=torch.Generator(device=dev).manual_seed(8),
+        device=dev, dtype=torch.int8), code))
+    for tag, rx in (("all-zero rx", zero), ("half-zero rx", half),
+                    ("saturating rx (+-30)", sat)):
+        for iters in (1, 2, 5, ITERATIONS):
+            for early_exit in (False, True):
+                vk, vp = run_pair("sumproduct", rx, code, iters, early_exit)
+                compare(f"sumproduct {'early_exit' if early_exit else 'fixed'}"
+                        f" {tag}, {iters} iterations", vk, vp, code,
+                        early_exit, identical=True)
+    # the tile SPA against the f32 path of ops/decode.py under early exit:
+    # no frame decided as two different valid codewords
+    compare(f"sumproduct precise early_exit vs ops.decode f32 path "
+            f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB",
+            kernels["sumproduct"](rx4, code, ITERATIONS, mode="precise",
+                                  early_exit=True),
+            decode_sumproduct(rx4, code, ITERATIONS, early_exit=True), code,
+            True, two_valid_only=True)
 
     # the exact kernels: their plain versions on every frame, and the f32
     # path of ops/decode.py (whose torch scans may sum in another order)
@@ -416,9 +568,6 @@ def main() -> int:
         compare(f"{method} exact vs ops.decode f32 path {N_FRAMES}x"
                 f"{ITERATIONS}", vk, vf, code, False, min_agree=EXACT_MIN_AGREE)
         del vp, vf
-    sat = 30.0 * bpsk_map(encode_bits(torch.randint(
-        0, 2, (64, code.K), generator=torch.Generator(device=dev).manual_seed(8),
-        device=dev, dtype=torch.int8), code))
     exact_edge = [("batch 1", codewords(code, 1, PARITY_EBN0_DB, 1), ITERATIONS),
                   ("batch 257", codewords(code, 257, PARITY_EBN0_DB, 2),
                    ITERATIONS),
@@ -445,7 +594,8 @@ def main() -> int:
                     f" {c.name} E={edge_slots(c)} smem "
                     f"{cuda_bp.large_smem_bytes(c)} B {LARGE_FRAMES}x"
                     f"{ITERATIONS} @2dB (plain peak {peak:.0f} MiB)", vk, vp,
-                    c, early_exit)
+                    c, early_exit, mirror=mirror_of(
+                        method, rxl, c, ITERATIONS, early_exit, 2.0))
                 if c is gen[512] and not early_exit:
                     max_err[f"bp_{method}_large"] = err
     # each sweep step's decoder against the plain version on the rx the
@@ -471,7 +621,8 @@ def main() -> int:
                 peak = max(peak, torch.cuda.max_memory_allocated() / 2**20)
                 tag = (f"{method} sweep step {c.name} {fps}x{iters} early_exit "
                        f"@{e:+.1f}dB")
-                compare(tag, vk, vp, c, True)
+                compare(tag, vk, vp, c, True,
+                        mirror=mirror_of(method, rxs, c, iters, True, float(e)))
                 if step((0, p, 0), float(e)) != count_errors(vk, u, c):
                     raise AssertionError(f"the step decodes other frames: {tag}")
             log(f"[kernels] {method} sweep steps {c.name} {fps}x{iters}: "
@@ -490,9 +641,9 @@ def main() -> int:
 
     # the study instances against their plain versions, 0 mismatching frames:
     # the variants decide nearly the same frames, so only identity shows that
-    # an instance ran its own arithmetic; the variants whose arithmetic is the
-    # shipped tile kernel's against it, and the two-frames-a-thread forms
-    # against the one-frame forms
+    # an instance ran its own arithmetic; the variants whose arithmetic is
+    # study_phi's against it, and the two-frames-a-thread forms against the
+    # one-frame forms
     shape = f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB"
     for name in cuda_study.INSTANCES:
         vk = cuda_study.study_decode(name, rx4, code, ITERATIONS)
@@ -500,13 +651,20 @@ def main() -> int:
         torch.cuda.synchronize()
         max_err[name] = compare(f"{name} vs plain {shape}", vk, vp, code, False,
                                 identical=True)
+    # study_phi is the tile SPA with the libm phi it had before its SFU
+    # check step: the prototypes' variants of that arithmetic against it
+    # (0), and the shipped kernel against it under the fixed contract
     shipped = kernels["sumproduct"](rx4, code, ITERATIONS, mode="precise")
+    libm_phi = cuda_study.study_decode("study_phi", rx4, code, ITERATIONS)
     runs = {"proto_r3b base": proto_r3b.run("base", rx4, code, ITERATIONS),
             "proto_r3b full": proto_r3b.run_abl("full", rx4, code, ITERATIONS),
             "proto_r4b phi": proto_r4b.run("phi", rx4, code, ITERATIONS)}
     for tag, v in runs.items():
-        compare(f"{tag} vs the shipped tile kernel {shape}", v, shipped, code,
-                False, identical=True)
+        compare(f"{tag} vs study_phi {shape}", v, libm_phi, code, False,
+                identical=True)
+    compare(f"the shipped tile SPA (SFU phi) vs study_phi (libm phi) {shape}",
+            shipped, libm_phi, code, False)
+    sp_agree = {"study_phi": float((libm_phi == shipped).all(1).float().mean())}
     for two, one in (("skew2", "base"), ("skewlog", "explog")):
         compare(f"proto_r3b {two} vs {one} {shape}",
                 proto_r3b.run(two, rx4, code, ITERATIONS),
@@ -516,7 +674,6 @@ def main() -> int:
     # (inf and NaN must pass through kernel and plain version alike), 0
     # mismatching frames; then each one's agreement with the shipped precise
     # SPA on rx4
-    sp_agree = {}
     for name in SP_NEW:
         for tag, rx, steps in (("iterations 0", rxi, 0), ("iterations 1", rxi, 1),
                                ("saturating rx (+-30)", sat, ITERATIONS)):
@@ -531,7 +688,7 @@ def main() -> int:
         if name in SP_FAST and not sp_agree[name] >= FIXED_MIN_AGREE:
             raise AssertionError(f"{name}: agreement {sp_agree[name]} with "
                                  f"the shipped precise SPA")
-    del shipped, runs
+    del shipped, runs, libm_phi
     # the min-sum study: each instance against its plain version (0), the
     # yardstick against the shipped precise min-sum (0), and each instance's
     # agreement with it: the bf16-aggregation candidates keep the fast
@@ -807,6 +964,37 @@ def main() -> int:
                 log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
                     f"{ITERATIONS}: kernel {ms:.4f} ms "
                     f"({N_FRAMES * c.K / (ms / 1e3):.4e} info bit/s) [{card}]")
+    # the tile SPA against study_phi (its skeleton with the libm phi it had
+    # before its SFU check step) and study_stub (the skeleton, no
+    # transcendental), interleaved; then each SPA kernel's MUFU floor: the
+    # log tanh's MUFU instructions, two an edge and check step, at 16 a
+    # clock an SM, at the SM clock the kernel held back to back
+    spa = {"tile SPA": lambda: kernels["sumproduct"](rx4, code, ITERATIONS,
+                                                       mode="precise"),
+           **{n: functools.partial(cuda_study.study_decode, n, rx4, code,
+                                   ITERATIONS)
+              for n in ("study_phi", "study_stub")}}
+    order = ("study_stub", "study_phi", "tile SPA", "tile SPA", "study_phi",
+             "study_stub")
+    spa_ms = [(n, time_decode(spa[n])) for n in order]
+    for n in spa:
+        ms_n = [t for m, t in spa_ms if m == n]
+        log(f"[times] {n} {shape}, interleaved: {ms_n[0]:.4f} / "
+            f"{ms_n[1]:.4f} ms [{card}]")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = {}
+    for name, c, frames, rxt in (("bp_sumproduct", code, N_FRAMES, rx4),
+                                 ("bp_sumproduct_large", big, LARGE_FRAMES,
+                                  codewords(big, LARGE_FRAMES, 2.0, 6))):
+        loaded, samples = under_load(functools.partial(
+            kernels["sumproduct"], rxt, c, ITERATIONS, mode="precise"), 2.0)
+        mhz = float(np.median([smp[0] for smp in samples]))
+        sfu_ms[name] = (phi_mufu * 2 * int(c.H.sum()) * frames * ITERATIONS
+                        / (16 * sms * mhz * 1e3))
+        log(f"[times] {name} {c.name} {frames}x{ITERATIONS}: {loaded:.4f} ms "
+            f"a call back to back at clocks.sm {mhz:.0f} MHz (median of "
+            f"{len(samples)}); MUFU floor {sfu_ms[name]:.4f} ms "
+            f"({phi_mufu} MUFU a log tanh) [{card}]")
     for _ in range(2):
         forward(gen_fwd, data)
     torch.cuda.synchronize()
@@ -862,8 +1050,8 @@ def main() -> int:
             f"(s, frames/s): " + ", ".join(
                 f"{e:+.1f} dB {s:.4f} {per_point / s:.4e}"
                 for e, s in zip(r.ebn0_db, r.point_wall_s)) + f" [{card}]")
-    # the study's table, each variant against its script's first (the
-    # shipped arithmetic: ablate_pallas baseline, proto_r3b base, proto_r4b phi)
+    # the study's table, each variant against its script's first
+    # (ablate_pallas baseline; proto_r3b base and proto_r4b phi, study_phi)
     log(f"[study] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
     log(f"    {'script':11s} {'variant':13s} {'instance':21s} {'kernel ms':>9s} "
@@ -879,7 +1067,7 @@ def main() -> int:
     for row in study_rows:    # each instance's time: its first variant's row
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the SPA aggregation-precision table, each row against study_phi (the
-    # shipped tile kernel's arithmetic, proto_r2's sum-product yardstick);
+    # tile SPA with the libm phi, proto_r2's sum-product yardstick);
     # "shipped" is phase 3's agreement with the shipped precise SPA, "agree"
     # the script's own reference's (fast_kernel_proto: the f32 path)
     phi_ms = next(r["ms"] for r in sp_rows if r["tag"] == "sp-ref")
@@ -889,8 +1077,7 @@ def main() -> int:
         f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'shipped':>7s} "
         f"agree")
     for row in sp_rows:
-        # study_phi: 0 mismatched frames with the shipped kernel (phase 3)
-        shipped_agree = sp_agree.get(row["instance"], 1.0)
+        shipped_agree = sp_agree[row["instance"]]
         log(f"    {row['tag']:9s} {row['variant']:10s} {row['instance']:19s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
             f"{row['ms'] / phi_ms:6.3f} {shipped_agree:7.5f} "
@@ -956,7 +1143,8 @@ def main() -> int:
                 "max_abs_err": max_err[name], "ms": times[name][0],
                 "plain_ms": times[name][1], "bound_ms": bound,
                 "bound_by": by,
-                "library_ms": None}    # no single PyTorch call decodes BP
+                "library_ms": None,    # no single PyTorch call decodes BP
+                **({"sfu_ms": sfu_ms[name]} if name in sfu_ms else {})}
 
     record = {"kernels": [
         kernel_record(name, SOURCES[route_of(name)], REPLACES[name],

@@ -3,7 +3,7 @@
 // Replaces, in gr_ldpc_ece535a_tpu/ops/pallas_bp.py:
 //   bp_kernel<WR, true, 32, 8>    <- _sumproduct_fast_kernel  (tanh-rule SPA, phi domain)
 //   bp_kernel<WR, false, 32, 8>   <- _minsum_fast_kernel      (min-sum, sign(0) zeroes the row)
-//   bp_kernel<WR, true, 16, 32>   <- _sumproduct_split_kernel (the same SPA, large codes)
+//   bp_kernel<WR, true, 16, 64>   <- _sumproduct_split_kernel (the same SPA, large codes)
 //   bp_kernel<WR, false, 16, 32>  <- _minsum_split_kernel     (the same min-sum, large codes)
 // each in its fixed-iteration and early-exit form. The plain PyTorch versions
 // of the same functions are in ops/cuda_bp.py and round in the same order.
@@ -25,9 +25,10 @@
 //
 // Two tiles. The tile kernel (F = 32, R = 8) takes 36.9 KB for block_32_64
 // (E = 192, N = 64) and 56 KB for sim_50_100. The large-code kernel
-// (F = 16, R = 32) halves the frames so that codes up to E ~ 2000 fit one
+// (F = 16) halves the frames so that codes up to E ~ 2000 fit one
 // block's 227 KB: 154 KB for gen_256_512 (E = 1536), 192 KB for gen_320_640
-// (E = 1920). It runs one 512-thread block per SM. A warp is 16 frames x 2
+// (E = 1920). It runs one block per SM: 64 rows (1,024 threads, 32 warps)
+// for the sum-product, 32 rows for min-sum. A warp is 16 frames x 2
 // rows: in the check step its two rows take neighbouring checks, so
 // msg[e*16 + f] hits 32 distinct banks; in the variable step the two rows'
 // slots are unrelated and collide in one bank pair when their slot indices
@@ -36,18 +37,33 @@
 // fit VMEM; the gather form here has no Gram, so the large kernel is the
 // same arithmetic as the tile kernel, in a smaller tile.
 //
-// What bounds it. Per real edge and iteration the sum-product does two
-// logf(tanhf(.)) pairs (not fast-math intrinsics: the precise contract needs
-// IEEE-accurate values where log(tanh(x/2)) nears 0 and at the 1e4 clamp);
-// min-sum does only compares. Global memory traffic is 256 B in and 64 B out
-// per frame per decode, so neither is bound by HBM. The sum-product should be
-// bound by the special-function and FMA pipes, min-sum by shared-memory
-// traffic and instruction issue (not yet profiled). The design keeps every
-// operand on chip and gives each SM enough warps to hide SFU and
-// shared-memory latency: at block_32_64's 48 registers a thread, 5 blocks of
-// 8 warps fit an SM. On an H100 at 700 W, 131,072 frames x 20 iterations take
-// 2.23 ms (sum-product) and 0.908 ms (min-sum). Faster variants (fewer SFU
-// calls via lookup or a cheaper "fast" mode) are later work.
+// What bounds it. Global memory traffic is 256 B in and 64 B out per frame
+// per decode, so neither kernel is bound by HBM. Per real edge and
+// iteration the sum-product evaluates log tanh(x/2) twice. With libm's
+// logf(tanhf(.)) that was 45 SASS instructions with 2 on the special-function
+// unit (MUFU), and instruction issue bound the check step: 69% of the
+// kernel. log_tanh_half moves the work onto the MUFU, which stood mostly
+// idle: 11 instructions, 3 of them MUFU (ex2, rcp, lg2), so the check
+// step's issue (phi and the rest of the step) about meets the MUFU's 16
+// results a clock an SM, and the check step now costs about the MUFU's
+// time. Its error stays under max(2^-16 |phi|, 2^-20); the kernels keep the
+// precise contracts against their IEEE plain versions, but for a few frames
+// on the large codes at 1-2 dB that the same algorithm in IEEE f32 decides
+// as the kernel does (ops/cuda_bp.py).
+// Min-sum does only compares; its load-compute-store skeleton bounds it.
+// Every operand stays on chip; at block_32_64's 48 registers a thread, 5
+// tile blocks of 8 warps fit an SM. The large-code block's shared memory
+// holds it to one block an SM, where 16 warps hid too little latency: with
+// 32 rows the large SPA took 1.24x as long as with 64 (tools/occupancy.py).
+// On an NVIDIA H100 80GB HBM3 at 700 W: block_32_64 131,072 frames x 20
+// iterations 1.357 ms (sum-product; 2.213 with libm's phi) and 0.909 ms
+// (min-sum); gen_256_512 16,384 x 20 1.658 ms (sum-product; 2.973 with
+// libm's phi and 32 rows). Two costs of this design: a code that fits the
+// tile but is sent to the large-code SPA (impl="split"; no "auto" route
+// does so) now gets one block of 32 warps an SM where two of 16 fitted,
+// 2.450 ms against 1.654 on block_32_64; and ptxas holds the tile SPA to 48
+// registers with a spill, 8 B at WR = 6 and 20 B at WR = 7 and 8, where the
+// libm form spilled none.
 //
 // Rounding order, shared with the plain versions: the check-row phi sum is
 // the pairwise tree of pallas_bp._tree (Wr = 6: ((x0+x3)+(x1+x4))+(x2+x5));
@@ -61,7 +77,9 @@
 namespace {
 
 constexpr int kTileFrames = 32, kTileRows = 8;     // tile kernel
-constexpr int kLargeFrames = 16, kLargeRows = 32;  // large-code kernel
+// large-code kernel: 16 frames; 64 rows of threads for the sum-product,
+// whose one block an SM hid too little latency with 16 warps, 32 for min-sum
+constexpr int kLargeFrames = 16, kLargeRowsSp = 64, kLargeRowsMs = 32;
 constexpr int kWcMax = 4;                // largest column weight taken
 constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
 constexpr float kPhiClamp = 1e4f;        // pallas_bp._PHI_CLAMP
@@ -89,9 +107,61 @@ struct Tree {
 
 struct Add { __device__ float operator()(float a, float b) const { return a + b; } };
 
+// The special-function unit (MUFU), one instruction each: 2^a, 1/a, log2 a,
+// about 22 bits. ftz: a subnormal operand or result is 0.
+__device__ __forceinline__ float ex2_sfu(float a) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(a));
+  return y;
+}
+__device__ __forceinline__ float rcp_sfu(float a) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(a));
+  return y;
+}
+__device__ __forceinline__ float lg2_sfu(float a) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(a));
+  return y;
+}
+// nan_min as one min.NaN instruction, for log_tanh_half (the min-sum keeps
+// nan_min's compare-and-select, and its SASS)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float y;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
+constexpr float kLog2e = 1.44269504088896341f;
+constexpr float kLn2 = 0.693147180559945309f;
+constexpr float kPhiSmall = 0.0125f;     // below it, log tanh(x/2) ~ log(x/2)
+
+// log tanh(x/2) for x >= 0 on the SFU: with e = 2^(-x log2 e) = e^-x,
+// tanh(x/2) = (1 - e) / (1 + e), so log tanh(x/2) = ln2 (log2(2 tanh) - 1).
+// Three MUFU (ex2, rcp, lg2) and about eight FMA/ALU instructions, where
+// logf(tanhf(.)) is 45 with two MUFU. The reciprocal is a MUFU rather than
+// a polynomial for log2(1 + e) on the FMA pipe: with the rest of the check
+// step, issue already about meets the three MUFU's time
+// (tools/issue_model.py), so more FMA work would cost and one MUFU less
+// would not pay. Below kPhiSmall 1 - e cancels, and log2 takes x itself:
+// log tanh(x/2) = log(x/2) - x^2/12 + ..., the dropped term under 2^-18 of
+// the value there, as is ex2's error carried through 1 - e above it.
+// Results above 0 (lg2's absolute error where 2 tanh is near 2) are clamped
+// to 0, as logf(tanhf) never exceeds it.
+// x = 0 gives -inf, x = +inf (and x above 87, where e flushes to 0) gives 0,
+// NaN stays NaN; a subnormal x acts as 0.
+__device__ __forceinline__ float log_tanh_half(float x) {
+  const float e = ex2_sfu(x * -kLog2e);
+  const float tanh2 = __fmaf_rn(-2.f, e, 2.f) * rcp_sfu(1.f + e);
+  const float l = lg2_sfu(x < kPhiSmall ? x : tanh2);
+  return min_nan(__fmaf_rn(l, kLn2, -kLn2), 0.f);
+}
+
 // Sum-product check step for check m of frame f, in place: M -> E.
 //   w = max(log tanh(|t|/2), -1e4), U = tree sum of w over the row,
-//   E = (-(row sign product) * own sign) * log tanh((w - U)/2).
+//   E = (-(row sign product) * own sign) * log tanh((w - U)/2),
+// each log tanh by log_tanh_half. Every w <= 0, so w - U >= 0; where the
+// other slots all have w = 0 it is 0, and E is +-inf.
 // Pad slots act as t = +1e30: w = 0, sign +1, so they are skipped.
 template <int WR, int F>
 __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
@@ -106,7 +176,7 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
     if (sv[e] >= 0) {
       const float t = msg[e * F + f];
       sg[k] = t < 0.f ? -1.f : 1.f;
-      const float x = logf(tanhf(fabsf(t) * 0.5f));
+      const float x = log_tanh_half(fabsf(t));
       w[k] = x < -kPhiClamp ? -kPhiClamp : x;   // keeps NaN, as jnp.maximum
     }
     u[k] = w[k];
@@ -120,7 +190,7 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
     const int e = k * M + m;
     if (sv[e] >= 0) {
       const float v = w[k] - U;
-      msg[e * F + f] = (negP * sg[k]) * logf(tanhf(v * 0.5f));
+      msg[e * F + f] = (negP * sg[k]) * log_tanh_half(v);
     }
   }
 }
@@ -372,7 +442,8 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
 #undef BP_CASE
 }
 
-template <int F, int R>
+// R_SP and R_MS: the rows of threads of the sum-product and min-sum blocks
+template <int F, int R_SP, int R_MS>
 int decode(int sumproduct, const float* rx, int8_t* out, int B,
            const int* slot_var, const int* var_slots, int M, int N, int Wr,
            int Wc, int iterations, int early_exit, float norm_offset,
@@ -382,18 +453,74 @@ int decode(int sumproduct, const float* rx, int8_t* out, int B,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return sumproduct
-             ? dispatch<true, F, R>(Wr, rx, out, B, slot_var, var_slots, M, N,
-                                    Wc, iterations, early_exit, norm_offset,
-                                    norm_scale, use_offset, use_scale, s)
-             : dispatch<false, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
-                                     N, Wc, iterations, early_exit,
-                                     norm_offset, norm_scale, use_offset,
-                                     use_scale, s);
+             ? dispatch<true, F, R_SP>(Wr, rx, out, B, slot_var, var_slots, M,
+                                       N, Wc, iterations, early_exit,
+                                       norm_offset, norm_scale, use_offset,
+                                       use_scale, s)
+             : dispatch<false, F, R_MS>(Wr, rx, out, B, slot_var, var_slots, M,
+                                        N, Wc, iterations, early_exit,
+                                        norm_offset, norm_scale, use_offset,
+                                        use_scale, s);
+}
+
+// y = log_tanh_half(x), elementwise: the check step's function alone, for
+// holding it against float64 and for counting its instructions.
+__global__ void phi_probe_kernel(const float* __restrict__ x,
+                                 float* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = log_tanh_half(x[i]);
+}
+
+template <int F, int R_SP, int R_MS>
+int occupancy(int sumproduct, int Wr, int smem, int* blocks, int* threads) {
+  const void* fn = nullptr;
+#define BP_FN(W)                                                              \
+  case W:                                                                     \
+    fn = sumproduct ? (const void*)bp_kernel<W, true, F, R_SP>                \
+                    : (const void*)bp_kernel<W, false, F, R_MS>;              \
+    break;
+  switch (Wr) {
+    BP_FN(2) BP_FN(3) BP_FN(4) BP_FN(5) BP_FN(6) BP_FN(7) BP_FN(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef BP_FN
+  *threads = F * (sumproduct ? R_SP : R_MS);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, *threads,
+                                                        smem);
+  // a query's error must not surface as the next launch's cudaGetLastError
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
+
+// y (n,) = log tanh(x/2) by the check step's log_tanh_half, for device
+// buffers x and y on `stream`. Returns the launch's cudaError_t.
+int bp_phi_probe(const float* x, float* y, int n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  phi_probe_kernel<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x, y, n);
+  return cudaGetLastError();
+}
+
+// Blocks of the tile (large = 0) or large-code (1) kernel that fit one SM
+// at `smem` bytes of dynamic shared memory, into *blocks, and the threads
+// of one block, into *threads.
+int bp_occupancy(int large, int sumproduct, int Wr, int smem, int* blocks,
+                 int* threads) {
+  return large ? occupancy<kLargeFrames, kLargeRowsSp, kLargeRowsMs>(
+                     sumproduct, Wr, smem, blocks, threads)
+               : occupancy<kTileFrames, kTileRows, kTileRows>(
+                     sumproduct, Wr, smem, blocks, threads);
+}
 
 // Shared memory one block of the tile (bp_smem_bytes) or large-code
 // (bp_large_smem_bytes) kernel needs for this code shape, in bytes.
@@ -413,7 +540,7 @@ int bp_decode(int sumproduct, const float* rx, int8_t* out, int B,
               const int* slot_var, const int* var_slots, int M, int N, int Wr,
               int Wc, int iterations, int early_exit, float norm_offset,
               float norm_scale, int use_offset, int use_scale, void* stream) {
-  return decode<kTileFrames, kTileRows>(
+  return decode<kTileFrames, kTileRows, kTileRows>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
       early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
 }
@@ -422,7 +549,7 @@ int bp_decode_large(int sumproduct, const float* rx, int8_t* out, int B,
                     int Wr, int Wc, int iterations, int early_exit,
                     float norm_offset, float norm_scale, int use_offset,
                     int use_scale, void* stream) {
-  return decode<kLargeFrames, kLargeRows>(
+  return decode<kLargeFrames, kLargeRowsSp, kLargeRowsMs>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
       early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
 }

@@ -17,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library"]
+__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
+           "load_variant"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
@@ -48,6 +49,30 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(src: Path, lib: Path) -> tuple[list[str], Path, subprocess.Popen]:
+    """Start nvcc on ``src`` into a temporary file beside ``lib``."""
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    return cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(jobs: dict[Path, tuple[list[str], Path, subprocess.Popen]]) -> None:
+    """Wait for every {library: _compile(...)}; move each built library into
+    place beside its compiler log; raise if any failed."""
+    failed = []
+    for lib, (cmd, tmp, proc) in jobs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+            continue
+        lib.with_suffix(".log").write_text(text)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> dict[str, tuple[Path, str]]:
     """Compile every source whose content was not built before, all at once.
 
@@ -55,27 +80,8 @@ def build() -> dict[str, tuple[Path, str]]:
     register, shared-memory and spill summary of every kernel.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, src in SOURCES.items():
-        lib = _lib_path(name)
-        if not lib.exists():
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            jobs[name] = (cmd, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in jobs.items():
-        text = proc.communicate(timeout=900)[0]
-        if proc.returncode:
-            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{text}")
-            continue
-        lib = _lib_path(name)
-        lib.with_suffix(".log").write_text(text)
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    _finish({lib: _compile(src, lib) for name, src in SOURCES.items()
+             if not (lib := _lib_path(name)).exists()})
     out = {}
     for name in SOURCES:
         lib = _lib_path(name)
@@ -87,7 +93,25 @@ def build() -> dict[str, tuple[Path, str]]:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, its functions typed."""
-    lib = ctypes.CDLL(str(build()[name][0]))
+    return _typed(ctypes.CDLL(str(build()[name][0])), name)
+
+
+def load_variant(name: str, text: str) -> ctypes.CDLL:
+    """A library built as ``csrc/<name>.cu`` is, from ``text``, a variant of
+    that source (for a tool that times one), typed as load_library's."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(text.encode())
+    src = BUILD_DIR / "variants" / f"{name}-{h.hexdigest()[:16]}.cu"
+    lib = src.with_name(f"lib{src.stem}.so")
+    if not lib.exists():
+        src.parent.mkdir(parents=True, exist_ok=True)
+        src.write_text(text)
+        _finish({lib: _compile(src, lib)})
+    return _typed(ctypes.CDLL(str(lib)), name)
+
+
+def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of ``lib``, built from <name>.cu."""
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     if name == "bp_wmajor":
         decode_args = [
@@ -101,6 +125,9 @@ def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
         ]
         fns = {"bp_decode": decode_args, "bp_decode_large": decode_args,
                "bp_smem_bytes": [i] * 4, "bp_large_smem_bytes": [i] * 4,
+               "bp_phi_probe": [p, p, i, p],   # x, y (n,) f32, n, stream
+               # large, sumproduct, Wr, smem bytes, int* blocks, int* threads
+               "bp_occupancy": [i, i, i, i, p, p],
                "bp_error_string": [i]}
     elif name in ("bp_study", "bp_study_ms"):
         fns = {f"{name}_decode": [

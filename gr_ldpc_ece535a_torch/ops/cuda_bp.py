@@ -42,9 +42,19 @@ decoders are described in csrc/bp_exact.cu.
 
 On the TPU "precise" and "fast" differ in how the aggregation matmul uses
 the bf16 MXU; here the aggregation is a 1-3 term f32 sum, so they run the
-same arithmetic. The wrappers run a kernel on a CUDA tensor and its plain
-version on a CPU tensor; there is no fallback between the two. Each launch
-adds one to ``LAUNCHES[kernel name]``.
+same arithmetic. The w-major sum-product kernels evaluate log tanh(x/2) on
+the special-function unit (``log_tanh_half``, within max(2^-16 |phi|,
+2^-20) of the exact value), the plain versions in IEEE f32, so the two no
+longer decide alike on every frame. The kernels keep the precise contracts
+against them (early exit at most 0.1% of frames mismatched, none with two
+different valid codewords; fixed iterations at least 99% frame agreement),
+except that on the large codes at 1-2 dB a few frames go to a valid
+codeword other than the plain version's. ``log_tanh_half_mirror`` is the
+kernels' algorithm in IEEE arithmetic, for the tests and chip_smoke.py: its
+decoder (``decode_sumproduct_phi``) takes those frames where the kernel
+does. The wrappers run a kernel on a CUDA tensor and its plain version
+on a CPU tensor; there is no fallback between the two. Each launch adds one
+to ``LAUNCHES[kernel name]``.
 """
 
 from __future__ import annotations
@@ -66,7 +76,9 @@ __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
            "decode_minsum_exact_plain", "decode_sumproduct_exact_plain",
            "kernel_supported", "large_supported", "exact_supported",
            "supported", "smem_bytes", "large_smem_bytes", "exact_smem_bytes",
-           "route", "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK"]
+           "route", "phi_probe", "log_tanh_half_mirror",
+           "decode_sumproduct_phi", "occupancy",
+           "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK"]
 
 FRAMES_PER_BLOCK = 32          # frames of a tile or exact block
 LARGE_FRAMES_PER_BLOCK = 16    # frames of a large-code block
@@ -74,6 +86,10 @@ WR_RANGE = (2, 8)              # row weights the kernels are instantiated for
 WC_MAX = 4                     # kWcMax
 SMEM_MAX = 232448              # H100: 227 KB of dynamic shared memory a block
 _PHI_CLAMP = 1e4
+# log_tanh_half's constants, as the f32 values the kernel holds
+_LOG2E = float(np.float32(1.4426950408889634))
+_LN2 = float(np.float32(0.6931471805599453))
+PHI_SMALL = float(np.float32(0.0125))   # kPhiSmall
 _MODES = ("exact", "precise", "fast")
 _IMPLS = ("auto", "gram", "split")
 
@@ -257,15 +273,35 @@ def _sign(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t < 0, -1.0, 1.0)
 
 
-def _check_sumproduct(msg: torch.Tensor, d) -> torch.Tensor:
-    """(B, E) messages, pads at PAD_BIG -> (B, E) check messages E."""
+def _log_tanh_half(x: torch.Tensor) -> torch.Tensor:
+    """log tanh(x/2) in IEEE f32: the plain versions' phi."""
+    return torch.log(torch.tanh(x * 0.5))
+
+
+def log_tanh_half_mirror(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' log tanh(x/2) (csrc/bp_wmajor.cu log_tanh_half), x >= 0,
+    step for step in f32, with IEEE exp2, 1/x and log2 where the kernel uses
+    the SFU's approximations: ln2 (log2(2 tanh(x/2)) - 1), 2 tanh(x/2) =
+    (2 - 2e) (1 / (1 + e)) with e = 2^(-x log2 e); log2(x) itself below
+    PHI_SMALL; results above 0 clamped to 0, NaN kept. For tests: the plain
+    versions keep _log_tanh_half."""
+    e = torch.exp2(x * -_LOG2E)
+    tanh2 = (2.0 - 2.0 * e) * (1.0 / (1.0 + e))
+    l = torch.log2(torch.where(x < PHI_SMALL, x, tanh2))
+    y = (l.double() * _LN2 - _LN2).float()   # one rounding, as __fmaf_rn
+    return torch.where(y > 0, 0.0, y)
+
+
+def _check_sumproduct(msg: torch.Tensor, d, phi=_log_tanh_half) -> torch.Tensor:
+    """(B, E) messages, pads at PAD_BIG -> (B, E) check messages E, with
+    ``phi`` the log tanh(x/2)."""
     B, t = msg.shape[0], msg.view(msg.shape[0], d.t.Wr, d.t.M)
     sg = _sign(t)
-    w = torch.clamp(torch.log(torch.tanh(torch.abs(t) * 0.5)), min=-_PHI_CLAMP)
+    w = torch.clamp(phi(torch.abs(t)), min=-_PHI_CLAMP)
     U = _tree(torch.add, w)
     negP = -_tree(torch.mul, sg)
     v = w - U
-    return ((negP * sg) * torch.log(torch.tanh(v * 0.5))).reshape(B, -1)
+    return ((negP * sg) * phi(v)).reshape(B, -1)
 
 
 def _check_minsum(msg: torch.Tensor, d, norm_offset: float,
@@ -351,6 +387,16 @@ def decode_sumproduct_plain(rx: torch.Tensor, code: LdpcCode,
     d = _dev_tables(code, rx.device)
     return _decode_plain(rx, code, iterations, early_exit, True,
                          lambda m: _check_sumproduct(m, d))
+
+
+def decode_sumproduct_phi(rx: torch.Tensor, code: LdpcCode,
+                          iterations: int = 20, early_exit: bool = False,
+                          phi=log_tanh_half_mirror) -> torch.Tensor:
+    """The plain sum-product decoder with another log tanh(x/2), ``phi``:
+    by default the kernels' algorithm (log_tanh_half_mirror)."""
+    d = _dev_tables(code, rx.device)
+    return _decode_plain(rx, code, iterations, early_exit, True,
+                         lambda m: _check_sumproduct(m, d, phi))
 
 
 def decode_minsum_plain(rx: torch.Tensor, code: LdpcCode, iterations: int = 20,
@@ -478,7 +524,10 @@ def decode_minsum_exact_plain(rx: torch.Tensor, code: LdpcCode,
 
 def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
             iterations: int, early_exit: bool, norm_offset: float = 0.0,
-            norm_scale: float = 1.0) -> torch.Tensor:
+            norm_scale: float = 1.0, lib: ctypes.CDLL | None = None
+            ) -> torch.Tensor:
+    """Launch the "tile", "large" or "exact" kernel; ``lib``, where given, is
+    a variant of bp_wmajor's library (tools/occupancy.py) in its place."""
     from ._build import load_library
 
     _check_gate(code, kind)
@@ -494,7 +543,7 @@ def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
                 d.t.M, d.t.N, d.t.Wr, d.t.Wc, int(iterations), stream)
             what = lib.bp_exact_error_string
         else:
-            lib = load_library("bp_wmajor")
+            lib = lib or load_library("bp_wmajor")
             d = _dev_tables(code, rx.device)
             fn = lib.bp_decode if kind == "tile" else lib.bp_decode_large
             err = fn(int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
@@ -561,3 +610,44 @@ def cuda_decode_minsum(rx: torch.Tensor, code: LdpcCode, iterations: int = 20,
             "min-sum corrections require mode='precise' or 'fast'")
     return _decode(False, rx, code, iterations, mode, early_exit, impl,
                    norm_offset, norm_scale)
+
+
+def phi_probe(x: torch.Tensor) -> torch.Tensor:
+    """log tanh(x/2) elementwise, x (n,) f32 >= 0: on a CUDA tensor the
+    w-major kernels' own function (bp_phi_probe), on a CPU tensor its
+    mirror. A probe of the check step, not a decoder: it counts no launch."""
+    from ._build import load_library
+
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous 1-D float32 tensor")
+    if x.device.type == "cpu":
+        return log_tanh_half_mirror(x)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = load_library("bp_wmajor")
+    with torch.cuda.device(x.device):
+        err = lib.bp_phi_probe(x.data_ptr(), y.data_ptr(), x.numel(),
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"bp_phi_probe failed: {lib.bp_error_string(err).decode()}")
+    return y
+
+
+def occupancy(code: LdpcCode, kind: str, sumproduct: bool,
+              lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(blocks, warps a block): the blocks of the "tile" or "large" w-major
+    kernel that one SM holds at this code's shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device),
+    in the shipped library or ``lib``, a variant of it."""
+    from ._build import load_library
+
+    lib = lib or load_library("bp_wmajor")
+    smem = (smem_bytes if kind == "tile" else large_smem_bytes)(code)
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.bp_occupancy(int(kind == "large"), int(sumproduct),
+                           wmajor_tables(code).Wr, smem, ctypes.byref(blocks),
+                           ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"bp_occupancy failed: {lib.bp_error_string(err).decode()}")
+    return blocks.value, threads.value // 32

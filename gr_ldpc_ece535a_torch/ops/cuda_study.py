@@ -24,7 +24,8 @@ Each variant of those scripts maps onto one compile-time instance, named in
 ``INSTANCES`` by its parts. A product that the TPU ran at precision DEFAULT
 rounded its f32 operand to bf16 and summed in f32; HIGHEST is exact:
 
-  check  phi          the shipped tile kernel's check step (bp_wmajor.cu)
+  check  phi          the tile kernel's check step (bp_wmajor.cu) with
+                      libm's logf(tanhf), as it was before its SFU phi
          explog       phi as log1p(-e^-x) - log1p(e^-x) (proto_r3b._check_explog)
          tanhprod_wm  tanh, exclusive prefix x suffix products, the clip to
                       [-1 + 1e-12, 1 - 1e-12] (which is [-1, 1] in f32, so

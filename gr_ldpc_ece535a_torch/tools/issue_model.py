@@ -6,19 +6,23 @@ the SM clock it runs at, and the issue time the two imply.
   mix    nvcc builds a probe of one precise logf(tanhf(x/2)) with the port's
          flags (ops/_build.py NVCC_FLAGS) into the git-ignored _build/;
          cuobjdump -sass counts the instructions between its load and its
-         store, by pipe (PIPES). The study library's kernels are counted the
-         same way, each over its whole body (static counts).
+         store, by pipe (PIPES). The shipped w-major SPA kernels' own
+         log tanh(x/2), csrc/bp_wmajor.cu log_tanh_half on the SFU, is
+         counted the same way in that library's bp_phi_probe kernel
+         (shipped_phi). The study library's kernels are counted over their
+         whole bodies (static counts).
   clock  study_phi and study_stub timed by CUDA events (tools/_timing.py),
          then each run back to back for a few seconds, timed by the host
          clock, while nvidia-smi samples the SM clock and power draw.
-  model  study_phi's check step, the shipped tile kernel's, evaluates the
-         pair twice an edge and check step: at the study's shape
-         (block_32_64, 131,072 frames x 20 check steps) that is
-         2 x edges x frames x 20 / 32 warp executions. A pipe needs
-         count / RATES[pipe] issue slots a warp execution, spread over
-         SMs x 4 schedulers at the clock study_phi held. Printed beside
-         the measured cost of the check step's arithmetic, study_phi minus
-         study_stub back to back.
+  model  study_phi's check step (the libm pair, the shipped tile kernel's
+         until its SFU check step) evaluates the pair twice an edge and
+         check step: at the study's shape (block_32_64, 131,072 frames x 20
+         check steps) that is 2 x edges x frames x 20 / 32 warp
+         executions. A pipe needs count / RATES[pipe] issue slots a warp
+         execution, spread over SMs x 4 schedulers at the clock study_phi
+         held. Printed beside the measured cost of the check step's
+         arithmetic, study_phi minus study_stub back to back; and the same
+         model for the SFU phi, the shipped kernel's check step now.
 
 The min-sum tile kernel has no transcendental, so its model counts
 shared-memory wavefronts instead (minsum_wavefronts): every message, table,
@@ -46,7 +50,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
-           "by_pipe",
+           "by_pipe", "shipped_phi", "under_load",
            "warp_executions", "issue_ms", "minsum_wavefronts", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
@@ -96,6 +100,14 @@ def pair_region(opcodes: list[str]) -> list[str]:
     first global store: the probe's logf(tanhf(x/2))."""
     start = opcodes.index("LDG")
     return opcodes[start + 1:opcodes.index("STG", start)]
+
+
+def shipped_phi(lib: Path) -> list[str]:
+    """The opcodes of the w-major SPA kernels' log tanh(x/2): the region
+    between the load and the store of bp_wmajor's phi_probe_kernel, in the
+    library built from csrc/bp_wmajor.cu."""
+    return pair_region(next(ops for name, ops in sass_functions(
+        sass_dump(lib)).items() if "phi_probe_kernel" in name))
 
 
 def by_pipe(opcodes) -> dict[str, int]:
@@ -163,7 +175,7 @@ def _smi(query: str) -> list[float]:
     return [float(x) for x in out.splitlines()[0].split(",")]
 
 
-def _under_load(fn, seconds: float = 3.0) -> tuple[float, list[list[float]]]:
+def under_load(fn, seconds: float = 3.0) -> tuple[float, list[list[float]]]:
     """Run fn back to back for ``seconds``: its milliseconds a call by the
     host clock, and (clocks.sm, clocks.max.sm, power.draw) samples taken
     meanwhile."""
@@ -215,6 +227,11 @@ def main() -> dict:
     print(f"[mix] one logf(tanhf(x/2)): {pair_pipes} | "
           + " ".join(f"{o}:{n}" for o, n in
                      collections.Counter(pair).most_common()), flush=True)
+    sfu = shipped_phi(build()["bp_wmajor"][0])
+    sfu_pipes = by_pipe(sfu)
+    print(f"[mix] one log_tanh_half(x) on the SFU (bp_wmajor.cu): {sfu_pipes}"
+          " | " + " ".join(f"{o}:{n}" for o, n in
+                           collections.Counter(sfu).most_common()), flush=True)
     kernels = {}
     for fn, ops in sass_functions(sass_dump(build()["bp_study"][0])).items():
         if inst := cuda_study.instance_of(fn):
@@ -228,7 +245,7 @@ def main() -> dict:
     for inst in ("study_phi", "study_stub"):
         fn = functools.partial(cuda_study.study_decode, inst, rx, code, steps)
         ms[inst] = time_decode(fn)
-        loaded[inst], samples = _under_load(fn)
+        loaded[inst], samples = under_load(fn)
         clock[inst] = statistics.median(s[0] for s in samples)
         print(f"[clock] {inst}: {ms[inst]:.4f} ms (CUDA events, median of "
               f"20), {loaded[inst]:.4f} ms a call back to back; meanwhile "
@@ -249,6 +266,10 @@ def main() -> dict:
     print(f"[model] the check step's arithmetic, study_phi - study_stub back "
           f"to back: {check_ms:.4f} ms = {check_ms / model['issue']:.3f} x "
           f"the pairs' issue time [{card}]", flush=True)
+    sfu_model = issue_ms(sfu_pipes, execs, sms, clock["study_phi"])
+    print(f"[model] the SFU phi at the same shape and clock -> "
+          + ", ".join(f"{p} {v:.4f} ms" for p, v in sfu_model.items())
+          + f" [{card}]", flush=True)
 
     # the min-sum study: static mix, times, and the wavefront model
     from ..ops import cuda_study_ms
@@ -266,7 +287,7 @@ def main() -> dict:
         fn = functools.partial(cuda_study_ms.study_ms_decode, inst, rx, code,
                                steps)
         ms[inst] = time_decode(fn)
-        loaded[inst], samples = _under_load(fn)
+        loaded[inst], samples = under_load(fn)
         clock[inst] = statistics.median(s[0] for s in samples)
         print(f"[clock] {inst}: {ms[inst]:.4f} ms (CUDA events, median of "
               f"20), {loaded[inst]:.4f} ms a call back to back; clocks.sm "
@@ -279,8 +300,9 @@ def main() -> dict:
           f"shared-memory wavefronts on {sms} SMs at {clock['study_ms_ref']} "
           f"MHz -> {wave_ms:.4f} ms = {wave_ms / loaded['study_ms_ref']:.3f} "
           f"of study_ms_ref back to back [{card}]", flush=True)
-    return {"card": card, "pair": pair_pipes, "kernels": kernels,
-            "clock_mhz": clock, "model_ms": model, "measured_ms": ms,
+    return {"card": card, "pair": pair_pipes, "sfu_phi": sfu_pipes,
+            "kernels": kernels, "clock_mhz": clock, "model_ms": model,
+            "sfu_model_ms": sfu_model, "measured_ms": ms,
             "loaded_ms": loaded, "ms_kernels": ms_kernels,
             "minsum_wavefront_ms": wave_ms}
 

@@ -23,8 +23,9 @@ its operand is rounded to bf16 (HIGHEST, the first gathers, is exact):
                       log((1+T)/(1-T)); bf16 products as current
                       (study_psprod)
 
-``main`` runs each kind's yardstick first, the shipped tile kernel's f32
-arithmetic (``study_ms_ref``; ``study_phi``), then each variant of the JAX
+``main`` runs each kind's yardstick first, the tile kernel's f32
+arithmetic (``study_ms_ref``; ``study_phi``, with libm's log tanh where the
+shipped kernel uses the SFU), then each variant of the JAX
 ``main``; every row reports its frame agreement with the shipped precise
 kernel of its kind, ``cuda_decode_minsum`` or ``cuda_decode_sumproduct``
 with ``mode="precise"``.
@@ -53,7 +54,8 @@ VARIANTS = {
 MAIN_VARIANTS = {"minsum": ("current", "stub_check", "stub_mm", "bits", "bf16",
                             "int8", "split"),
                  "sumprod": ("current", "psprod")}
-# each kind's yardstick: the shipped tile kernel's arithmetic
+# each kind's yardstick: the tile kernel's arithmetic (the SPA's with the
+# libm phi)
 REF = {"minsum": "study_ms_ref", "sumprod": "study_phi"}
 _SHIPPED = {"minsum": cuda_decode_minsum, "sumprod": cuda_decode_sumproduct}
 _TAGS = {"minsum": "ms", "sumprod": "sp"}

@@ -3,7 +3,8 @@
 The counterpart of ``tools/proto_r3b.py``. Each variant is a compile-time
 instance of ``csrc/bp_study.cu`` (``ops/cuda_study.py``):
 
-  base      the shipped tile kernel's arithmetic (phi domain, f32 sums)
+  base      the tile kernel's arithmetic with libm's logf(tanhf) (phi
+            domain, f32 sums; the shipped kernel's phi runs on the SFU)
   skew2     base with two independent frames a thread: on the TPU two
             interleaved half-tiles let the MXU and VPU overlap; here the
             second chain is instruction-level parallelism against latency

@@ -5,7 +5,8 @@ instances of ``csrc/bp_study.cu`` (``ops/cuda_study.py``) with the same f32
 aggregation: iterations-1 full steps, then a trailing check step (one even
 at zero iterations, as the JAX loop) and the decision.
 
-  phi       the shipped tile kernel's check step: two log tanh(x/2) a slot
+  phi       the tile SPA's check step with libm's logf(tanhf): two log
+            tanh(x/2) a slot (the shipped kernel evaluates them on the SFU)
   tanhprod  tanh(x/2), exclusive prefix x suffix products, the clip to
             [-1 + 1e-12, 1 - 1e-12] (which is [-1, 1] in f32), and
             log((1+T)/(1-T))

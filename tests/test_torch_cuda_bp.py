@@ -185,6 +185,14 @@ def test_size_gate():
         cuda_bp._check_gate(huge)
 
 
+def test_occupancy_tool_needs_a_card():
+    """tools/occupancy.py times kernels; without a card it says so."""
+    from gr_ldpc_ece535a_torch.tools import occupancy
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        occupancy.main()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["minsum", "sumproduct"])
 def test_kernel_matches_plain_version_on_gpu(kind):
