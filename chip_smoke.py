@@ -12,7 +12,8 @@ Phases, each of which raises on a miss:
               fails unless every unrolled instance has more than its
               unroll-1 sibling; the SASS of the w-major SPA kernels'
               log tanh(x/2) (bp_phi_probe) by pipe, and how many blocks of
-              each w-major tile an SM holds (occupancy)
+              each w-major tile and of the exact kernels an SM holds
+              (occupancy)
   phi      the SPA kernels' log tanh(x/2) alone on the card, on 10^5 points
               in [2^-20, 40] and at 0, 1e-30, 87, 88, 1e30, inf and NaN,
               against float64: |error| <= max(2^-16 |phi|, 2^-20), beside
@@ -24,9 +25,11 @@ Phases, each of which raises on a miss:
               under early exit (no two different valid codewords); the
               exact kernels there (0 mismatching frames) and
               against the f32 path of ops/decode.py; the large-code kernels
-              on gen_256_512 and gen_320_640; each sweep step's decoder on
-              the rx that step draws, at the shapes of the sweeps of phase 4
-              (sim_50_100 125,000 x 5, gen_256_512 131,072 x 20, early exit);
+              on gen_256_512 and gen_320_640, and the large min-sum on the
+              zero and +-30 x codeword inputs there; each sweep step's
+              decoder on the rx that step draws, at the shapes of the
+              sweeps of phase 4 (sim_50_100 125,000 x 5, gen_256_512
+              131,072 x 20, early exit);
               impl="split" against the tile; every study instance at
               131,072 x 20 against its plain version, and the study variants
               whose arithmetic is study_phi's (the libm phi the shipped SPA
@@ -45,16 +48,20 @@ Phases, each of which raises on a miss:
               textbook SPA's agreement and frame error share against the sent
               codewords beside the shipped SPA's (no bar).
               The w-major kernels against their plain versions: identical
-              decisions (min-sum), or (SPA, whose log tanh runs on the SFU)
-              the precise contracts: early exit at most 0.1% of frames
-              mismatched and none two different valid codewords; fixed
-              iterations at least 99% frame agreement and syndrome-success
-              shares within 1%. At the early-exit shapes of MIRROR_WITNESS,
-              where the kernels take a few frames to a valid codeword other
-              than the plain version's, the kernel must also meet the
-              precise contract against the plain decoder on its own log
-              tanh algorithm in IEEE f32 (cuda_bp.log_tanh_half_mirror), and
-              that decoder must decide each such frame as the kernel does
+              decisions (min-sum, every comparison), or (SPA, whose log tanh
+              runs on the SFU) the precise contracts: early exit at most
+              0.1% of frames mismatched and none two different valid
+              codewords; fixed iterations at least 99% frame agreement and
+              syndrome-success shares within 1%. At the early-exit shapes
+              of MIRROR_WITNESS (large codes, 1-2 dB), where two decoders
+              whose phi differs in the last bits may each reach a different
+              codeword that satisfies H, the two-valid bar gives way: the
+              kernel keeps the 0.1% bar against the plain version and the
+              whole precise contract against the plain decoder on its own
+              log tanh algorithm in IEEE f32 (cuda_bp.log_tanh_half_mirror),
+              which must decide each two-valid frame as the kernel does;
+              printed there, no bar: of the two-valid frames, how many have
+              the kernel and how many the plain version on the sent codeword
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -74,10 +81,12 @@ Phases, each of which raises on a miss:
                           131,072 x 20, 4 dB; each times its variants'
                           kernels and plain versions
   5. times    CUDA-event times of kernel and plain version, host-clock time of
-              the whole forward and of each sweep point; the tile SPA
-              against study_phi and study_stub, interleaved; each SPA
-              kernel's MUFU floor (sfu_ms) at the SM clock it ran at; the
-              studies' tables
+              the whole forward and of each sweep point; the large-code
+              kernels' early exit at the gen_256_512 sweep's shape; the tile
+              SPA against study_phi and study_stub, interleaved; each SPA
+              kernel's MUFU floor (sfu_ms) at the SM clock it ran at, and
+              the exact SPA's MUFU and issue floors of its tanhf, division
+              and logf (tools/issue_model.py exact_mix); the studies' tables
               (the SPA aggregation-precision rows as ratios to study_phi);
               the unroll table: each unrolled instance timed against its
               unroll-1 sibling in one interleaved run, with its SASS count,
@@ -87,7 +96,9 @@ once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
 the two w-major SPA records also carry sfu_ms: the MUFU instructions of
 their log tanh (counted in its SASS), two an edge and check step, at 16 a
-clock an SM.
+clock an SM; the exact SPA's sfu_ms and issue_ms are the MUFU and all
+instructions of its tanhf, IEEE division and logf, once an edge and
+iteration, at 16 MUFU and 4 issues a clock an SM.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -242,7 +253,8 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
                                                      time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
-        by_pipe, sass_dump, sass_functions, shipped_phi, under_load)
+        by_pipe, exact_floor_ms, exact_mix, probe_sass, sass_dump,
+        sass_functions, shipped_phi, under_load)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -326,6 +338,12 @@ def main() -> int:
             log(f"[occupancy] {tile} {method} {c.name}, {smem} B of shared "
                 f"memory a block: {blocks} blocks of {warps} warps an SM "
                 f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    for method in ("sumproduct", "minsum"):
+        c = get_code("block_32_64")
+        blocks, warps = cuda_bp.occupancy(c, "exact", method == "sumproduct")
+        log(f"[occupancy] exact {method} {c.name}, "
+            f"{cuda_bp.exact_smem_bytes(c)} B of shared memory a block: "
+            f"{blocks} blocks of {warps} warps an SM")
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
                                     "sim_24_48", "sim_50_100")] + list(gen.values()):
         t, x = wmajor_tables(c), check_major_tables(c)
@@ -429,7 +447,7 @@ def main() -> int:
                 <= FIXED_MAX_SUCC_GAP)
 
     def compare(tag, vk, vp, code, early_exit, identical=False,
-                min_agree=None, mirror=None, two_valid_only=False):
+                min_agree=None, mirror=None, two_valid_only=False, sent=None):
         """Kernel vs plain: the four bins, and the contract of the form:
         identical decisions, or (min_agree) an agreement share with no two
         valid codewords, or (two_valid_only) no two valid codewords, or the
@@ -439,7 +457,8 @@ def main() -> int:
         mismatched share against the plain version, meets the precise
         contract against that decoder, and that decoder decides each frame
         on which the kernel and the plain version hold two different valid
-        codewords as the kernel does."""
+        codewords as the kernel does; ``sent``, the codewords sent, counts
+        those frames with the kernel and with the plain version on it."""
         B = vk.shape[0]
         c = bins(vk, vp, code)
         log(f"[kernels] {tag}: {json.dumps(c)}")
@@ -464,6 +483,12 @@ def main() -> int:
                     f"kernels' log tanh in IEEE f32: {json.dumps(m)}; of the "
                     f"{c['both_valid_different']} frames on two different "
                     f"valid codewords above, {other} decided otherwise by it")
+                if sent is not None:
+                    log(f"[kernels] {tag}: of those frames, "
+                        f"{int((two & (vk == sent).all(1)).sum())} with the "
+                        f"kernel and {int((two & (vp == sent).all(1)).sum())}"
+                        f" with the plain version on the sent codeword (no "
+                        f"bar)")
         if not good:
             raise AssertionError(f"kernel disagrees with its plain version: {tag}")
         return int((vk.int() - vp.int()).abs().max()) if B else 0
@@ -501,7 +526,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 form = "early_exit" if early_exit else "fixed"
                 compare(f"{method} {mode} {form} {N_FRAMES}x{ITERATIONS} "
-                        f"@{PARITY_EBN0_DB}dB", vk, vp, code, early_exit)
+                        f"@{PARITY_EBN0_DB}dB", vk, vp, code, early_exit,
+                        identical=method == "minsum")
 
     zero = torch.zeros((8, code.N), device=dev)
     half = zero.clone()
@@ -527,13 +553,14 @@ def main() -> int:
             for early_exit in (False, True):
                 vk, vp = run_pair(method, rx, c, iters, early_exit)
                 compare(f"{method} {'early_exit' if early_exit else 'fixed'} "
-                        f"{tag}", vk, vp, c, early_exit)
+                        f"{tag}", vk, vp, c, early_exit,
+                        identical=method == "minsum")
     for early_exit in (False, True):
         vk, vp = run_pair("minsum", rxi, code, ITERATIONS, early_exit,
                           norm_offset=0.5)
         compare(f"minsum norm_offset=0.5 "
                 f"{'early_exit' if early_exit else 'fixed'}", vk, vp, code,
-                early_exit)
+                early_exit, identical=True)
     # the inputs where log tanh meets its special values (0 -> -inf, the
     # clamp, E = +-inf) decide as the plain version decides them
     sat = 30.0 * bpsk_map(encode_bits(torch.randint(
@@ -584,6 +611,10 @@ def main() -> int:
         if cuda_bp.kernel_supported(c) or not cuda_bp.large_supported(c):
             raise AssertionError(f"{c.name} should take the large-code kernel")
         rxl = codewords(c, LARGE_FRAMES, 2.0, 6)
+        sent = encode_bits(torch.randint(      # rxl's codewords, from its seed
+            0, 2, (LARGE_FRAMES, c.K),
+            generator=torch.Generator(device=dev).manual_seed(6), device=dev,
+            dtype=torch.int8), c)
         for method in kernels:
             for early_exit in (False, True):
                 torch.cuda.reset_peak_memory_stats()
@@ -594,10 +625,24 @@ def main() -> int:
                     f" {c.name} E={edge_slots(c)} smem "
                     f"{cuda_bp.large_smem_bytes(c)} B {LARGE_FRAMES}x"
                     f"{ITERATIONS} @2dB (plain peak {peak:.0f} MiB)", vk, vp,
-                    c, early_exit, mirror=mirror_of(
-                        method, rxl, c, ITERATIONS, early_exit, 2.0))
+                    c, early_exit, identical=method == "minsum",
+                    mirror=mirror_of(method, rxl, c, ITERATIONS, early_exit,
+                                     2.0), sent=sent)
                 if c is gen[512] and not early_exit:
                     max_err[f"bp_{method}_large"] = err
+        # the large min-sum on exact zeros (sign(0) zeroes the row) and on a
+        # saturating rx, as the tile's are checked above
+        zl = torch.zeros((40, c.N), device=dev)
+        zl[20:, :c.N // 2] = 1.0
+        satl = 30.0 * bpsk_map(sent[:40])
+        for tag, rx in (("zero rx", zl), ("saturating rx (+-30)", satl)):
+            for iters in (1, 2, 5, ITERATIONS):
+                for early_exit in (False, True):
+                    vk, vp = run_pair("minsum", rx, c, iters, early_exit)
+                    form = "early_exit" if early_exit else "fixed"
+                    compare(f"minsum large {form} {c.name} {tag}, {iters} "
+                            f"iterations", vk, vp, c, early_exit,
+                            identical=True)
     # each sweep step's decoder against the plain version on the rx the
     # step draws, at the shapes run_waterfall gives it in phase 4: the
     # reference experiment's 125,000 frames x 5 iterations (a partial last
@@ -621,8 +666,9 @@ def main() -> int:
                 peak = max(peak, torch.cuda.max_memory_allocated() / 2**20)
                 tag = (f"{method} sweep step {c.name} {fps}x{iters} early_exit "
                        f"@{e:+.1f}dB")
-                compare(tag, vk, vp, c, True,
-                        mirror=mirror_of(method, rxs, c, iters, True, float(e)))
+                compare(tag, vk, vp, c, True, identical=method == "minsum",
+                        mirror=mirror_of(method, rxs, c, iters, True, float(e)),
+                        sent=u)
                 if step((0, p, 0), float(e)) != count_errors(vk, u, c):
                     raise AssertionError(f"the step decodes other frames: {tag}")
             log(f"[kernels] {method} sweep steps {c.name} {fps}x{iters}: "
@@ -995,6 +1041,33 @@ def main() -> int:
             f"a call back to back at clocks.sm {mhz:.0f} MHz (median of "
             f"{len(samples)}); MUFU floor {sfu_ms[name]:.4f} ms "
             f"({phi_mufu} MUFU a log tanh) [{card}]")
+    # the exact SPA's floors: its tanhf, IEEE division and logf (counted in
+    # SASS as it writes them) once an edge and iteration, at the SM clock
+    # it holds back to back
+    parts = {p: by_pipe(ops) for p, ops in exact_mix(probe_sass()).items()}
+    libm = {k: sum(c[k] for c in parts.values()) for k in parts["tanhf"]}
+    loaded, samples = under_load(functools.partial(
+        kernels["sumproduct"], rx4, code, ITERATIONS), 2.0)
+    mhz = float(np.median([smp[0] for smp in samples]))
+    floor = exact_floor_ms(libm, code, N_FRAMES, ITERATIONS, sms, mhz)
+    sfu_ms["bp_sumproduct_exact"] = floor["xu"]
+    issue_floor = {"bp_sumproduct_exact": floor["issue"]}
+    log(f"[times] bp_sumproduct_exact {code.name} {N_FRAMES}x{ITERATIONS}: "
+        f"{loaded:.4f} ms a call back to back at clocks.sm {mhz:.0f} MHz "
+        f"(median of {len(samples)}); its libm calls an edge {parts}: MUFU "
+        f"floor {floor['xu']:.4f} ms, issue floor {floor['issue']:.4f} ms "
+        f"[{card}]")
+    # the large-code kernels at the gen_256_512 sweep's shape (its steps'
+    # decode: 131,072 frames, early exit), kernel only
+    for method in kernels:
+        for p, e in enumerate(LARGE_PTS):
+            rxs = draw_frames(big, N_FRAMES, (0, p, 0), float(e), dev)[1]
+            ms = time_decode(lambda: kernels[method](
+                rxs, big, ITERATIONS, mode="precise", early_exit=True))
+            log(f"[times] {method} large early_exit {big.name} {N_FRAMES}x"
+                f"{ITERATIONS} @{e:+.1f}dB (a sweep step's decode): kernel "
+                f"{ms:.4f} ms [{card}]")
+        del rxs
     for _ in range(2):
         forward(gen_fwd, data)
     torch.cuda.synchronize()
@@ -1144,7 +1217,9 @@ def main() -> int:
                 "plain_ms": times[name][1], "bound_ms": bound,
                 "bound_by": by,
                 "library_ms": None,    # no single PyTorch call decodes BP
-                **({"sfu_ms": sfu_ms[name]} if name in sfu_ms else {})}
+                **({"sfu_ms": sfu_ms[name]} if name in sfu_ms else {}),
+                **({"issue_ms": issue_floor[name]} if name in issue_floor
+                   else {})}
 
     record = {"kernels": [
         kernel_record(name, SOURCES[route_of(name)], REPLACES[name],

@@ -32,6 +32,8 @@
 //                Lq_v = LQ - Lr_v. Decision LQ < 0.
 // Pad slots are never read: the Pallas kernels multiply them by a 0 mask,
 // which forms 0*inf = NaN once a message saturates; the f32 path selects.
+// A check's pad slots follow its real ones (ops/cuda_bp.py checks the
+// table), so the kernel keeps only each check's real width.
 // With zero iterations the decision is that of r, as the Pallas kernels'
 // loop carry gives.
 //
@@ -39,16 +41,28 @@
 // frames (one per lane, x) with 8 rows of threads (y); messages live in
 // shared memory [slot][frame], so a warp's 32 lanes (32 frames of one
 // check or variable) touch 32 banks:
-//   msg  E x 32 f32, r N x 33 f32, vh N x 33 int8, plus the two int32
-//   tables: 36.7 KB for block_32_64, 147 KB for E = 768 (gen_128_256),
-//   the largest code the Pallas exact kernels take.
+//   msg  E x 32 f32, r N x 33 f32, vh N x 33 int8, each check's real
+//   width (M int32) and each variable's slots (N x Wc int32): 36.0 KB for
+//   block_32_64, 144 KB for E = 768 (gen_128_256), the largest code the
+//   Pallas exact kernels take. The slot -> variable table is read from
+//   global memory once, when the messages start.
 //
-// What bounds it: the sum-product does one tanhf and one logf per real
-// edge and iteration plus an IEEE division (the phi-domain kernels need two
-// log/tanh pairs but no division); min-sum only compares. Global memory
+// What bounds it: the sum-product does one tanhf, one IEEE division and one
+// logf per real edge and iteration (19, 17 and 28 SASS instructions, 3 of
+// them MUFU; tools/issue_model.py); min-sum only compares. Global memory
 // sees rx once and the int8 decisions once. Built with --fmad=false and
 // without fast math, so tanhf, logf and '/' are the IEEE-accurate libm
-// versions that torch calls.
+// versions that torch calls, bit for bit. On an NVIDIA H100 80GB HBM3 at
+// 700 W, block_32_64 131,072 frames x 20 iterations (tools/exact_probe.py):
+// the check step's arithmetic takes 0.83 ms of the kernel's 1.58, 1.10x the
+// issue time of its SASS at 1980 MHz (0.75 ms; 0.84 for the three calls as
+// standalone functions): the check step is bound by instruction issue in
+// libm, which the contract fixes. So the design works around the calls:
+// each check's real width replaces the slot table in shared memory (one
+// load a check, where the table cost two a slot), and a check's pads never
+// reach tanhf or logf; 1.65 -> 1.58 ms.
+// The rest is the variable step, tables and barriers (0.60 ms) and the check
+// step's loads and stores (0.15 ms).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -65,7 +79,7 @@ constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
 
 __host__ __device__ inline int smem_bytes(int M, int N, int Wr, int Wc) {
   const int E = Wr * M;
-  return 4 * (E * kFrames + N * kRStride + E + N * Wc) + N * kRStride;
+  return 4 * (E * kFrames + N * kRStride + M + N * Wc) + N * kRStride;
 }
 
 // NaN-propagating min, as torch.amin
@@ -73,15 +87,21 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
-// Sum-product check step for check m of frame f, in place: M -> E.
+// Sum-product check step for check m of frame f, in place: M -> E. Its d
+// real slots come first; the pads' th = 1 leaves every product as it is,
+// and the loops over the real slots leave at w = d, a branch that a warp
+// (one check, 32 frames) takes as one, so no pad runs tanhf or logf.
 template <int WR>
-__device__ __forceinline__ void check_sumproduct(float* msg, const int* cv,
-                                                 int m, int f) {
+__device__ __forceinline__ void check_sumproduct(float* msg, int d, int m,
+                                                 int f) {
+  float* row = msg + m * WR * kFrames + f;
   float th[WR];
 #pragma unroll
+  for (int w = 0; w < WR; ++w) th[w] = 1.f;
+#pragma unroll
   for (int w = 0; w < WR; ++w) {
-    const int e = m * WR + w;
-    th[w] = cv[e] >= 0 ? tanhf(msg[e * kFrames + f] / 2.f) : 1.f;
+    if (w == d) break;
+    th[w] = tanhf(row[w * kFrames] / 2.f);
   }
   float pre[WR];
   float acc = 1.f;
@@ -90,26 +110,30 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* cv,
     pre[w] = acc;
     acc = acc * th[w];
   }
+  float T[WR];
   acc = 1.f;
 #pragma unroll
   for (int w = WR - 1; w >= 0; --w) {   // the same from the back
-    const int e = m * WR + w;
-    const float T = pre[w] * acc;
-    if (cv[e] >= 0) msg[e * kFrames + f] = logf((1.f + T) / (1.f - T));
+    T[w] = pre[w] * acc;
     acc = acc * th[w];
+  }
+#pragma unroll
+  for (int w = 0; w < WR; ++w) {
+    if (w == d) break;
+    row[w * kFrames] = logf((1.f + T[w]) / (1.f - T[w]));
   }
 }
 
-// Min-sum check step, in place: Lq -> Lr.
+// Min-sum check step, in place: Lq -> Lr. Its d real slots come first.
 template <int WR>
-__device__ __forceinline__ void check_minsum(float* msg, const int* cv, int m,
+__device__ __forceinline__ void check_minsum(float* msg, int d, int m,
                                              int f) {
   float beta[WR], alpha[WR];
   float P = 1.f, min1 = FLT_MAX;
 #pragma unroll
   for (int w = 0; w < WR; ++w) {
     const int e = m * WR + w;
-    const bool real = cv[e] >= 0;
+    const bool real = w < d;
     const float t = real ? msg[e * kFrames + f] : 0.f;
     alpha[w] = (float)(t > 0.f) - (float)(t < 0.f);
     beta[w] = real ? fabsf(t) : FLT_MAX;
@@ -131,7 +155,7 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* cv, int m,
 #pragma unroll
   for (int w = 0; w < WR; ++w) {
     const int e = m * WR + w;
-    if (cv[e] >= 0)
+    if (w < d)
       msg[e * kFrames + f] = (P * alpha[w]) * (w == arg ? min2 : min1);
   }
 }
@@ -219,15 +243,20 @@ bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   const int E = WR * M;
   float* msg = reinterpret_cast<float*>(smem);
   float* r = msg + E * kFrames;
-  int* cv = reinterpret_cast<int*>(r + N * kRStride);
-  int* vc = cv + E;
+  int* deg = reinterpret_cast<int*>(r + N * kRStride);   // real slots a check
+  int* vc = deg + M;
   int8_t* vh = reinterpret_cast<int8_t*>(vc + N * Wc);
 
   const int f = threadIdx.x, y = threadIdx.y;
   const int tid = y * kFrames + f;
   const long long f0 = (long long)blockIdx.x * kFrames;
 
-  for (int i = tid; i < E; i += kThreads) cv[i] = chk_var[i];
+  for (int m = tid; m < M; m += kThreads) {
+    int d = 0;
+#pragma unroll
+    for (int w = 0; w < WR; ++w) d += chk_var[m * WR + w] >= 0;
+    deg[m] = d;
+  }
   for (int i = tid; i < N * Wc; i += kThreads) vc[i] = var_cslots[i];
   for (int i = tid; i < kFrames * N; i += kThreads) {   // coalesced rx rows
     const int ff = i / N, j = i - ff * N;
@@ -236,7 +265,7 @@ bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
   __syncthreads();
   for (int e = y; e < E; e += kRows) {
-    const int j = cv[e];
+    const int j = chk_var[e];
     if (j >= 0) msg[e * kFrames + f] = r[j * kRStride + f];
   }
   for (int j = y; j < N; j += kRows) {   // decision of r (iterations = 0)
@@ -248,9 +277,9 @@ bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   for (int it = 0; it < iterations; ++it) {
     for (int m = y; m < M; m += kRows) {
       if constexpr (SP)
-        check_sumproduct<WR>(msg, cv, m, f);
+        check_sumproduct<WR>(msg, deg[m], m, f);
       else
-        check_minsum<WR>(msg, cv, m, f);
+        check_minsum<WR>(msg, deg[m], m, f);
     }
     __syncthreads();
     const bool last = it + 1 == iterations;
@@ -300,9 +329,44 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
 #undef BP_CASE
 }
 
+template <bool SP>
+int occupancy(int Wr, int smem, int* blocks) {
+  const void* fn = nullptr;
+#define BP_FN(W)                                                              \
+  case W:                                                                     \
+    fn = (const void*)bp_exact_kernel<W, SP>;                                 \
+    break;
+  switch (Wr) {
+    BP_FN(2) BP_FN(3) BP_FN(4) BP_FN(5) BP_FN(6) BP_FN(7) BP_FN(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef BP_FN
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads,
+                                                        smem);
+  // a query's error must not surface as the next launch's cudaGetLastError
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Blocks of the exact min-sum (sumproduct = 0) or sum-product (1) kernel
+// that fit one SM at `smem` bytes of dynamic shared memory, into *blocks,
+// and the threads of one block, into *threads.
+int bp_exact_occupancy(int sumproduct, int Wr, int smem, int* blocks,
+                       int* threads) {
+  *threads = kThreads;
+  return sumproduct ? occupancy<true>(Wr, smem, blocks)
+                    : occupancy<false>(Wr, smem, blocks);
+}
 
 // Shared memory one block needs for this code shape, in bytes.
 int bp_exact_smem_bytes(int M, int N, int Wr, int Wc) {

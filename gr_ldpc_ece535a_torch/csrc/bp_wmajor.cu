@@ -4,7 +4,7 @@
 //   bp_kernel<WR, true, 32, 8>    <- _sumproduct_fast_kernel  (tanh-rule SPA, phi domain)
 //   bp_kernel<WR, false, 32, 8>   <- _minsum_fast_kernel      (min-sum, sign(0) zeroes the row)
 //   bp_kernel<WR, true, 16, 64>   <- _sumproduct_split_kernel (the same SPA, large codes)
-//   bp_kernel<WR, false, 16, 32>  <- _minsum_split_kernel     (the same min-sum, large codes)
+//   bp_kernel<WR, false, 16, 64>  <- _minsum_split_kernel     (the same min-sum, large codes)
 // each in its fixed-iteration and early-exit form. The plain PyTorch versions
 // of the same functions are in ops/cuda_bp.py and round in the same order.
 //
@@ -27,15 +27,15 @@
 // (E = 192, N = 64) and 56 KB for sim_50_100. The large-code kernel
 // (F = 16) halves the frames so that codes up to E ~ 2000 fit one
 // block's 227 KB: 154 KB for gen_256_512 (E = 1536), 192 KB for gen_320_640
-// (E = 1920). It runs one block per SM: 64 rows (1,024 threads, 32 warps)
-// for the sum-product, 32 rows for min-sum. A warp is 16 frames x 2
-// rows: in the check step its two rows take neighbouring checks, so
-// msg[e*16 + f] hits 32 distinct banks; in the variable step the two rows'
-// slots are unrelated and collide in one bank pair when their slot indices
-// have equal parity (a 2-way conflict on about half the reads). The TPU's
-// split form bcm^T (bcm x) - x existed only because the (E, E) Gram did not
-// fit VMEM; the gather form here has no Gram, so the large kernel is the
-// same arithmetic as the tile kernel, in a smaller tile.
+// (E = 1920). It runs one block per SM, of 64 rows (1,024 threads, 32
+// warps). A warp is 16 frames x 2 rows: in the check step its two rows take
+// neighbouring checks, so msg[e*16 + f] hits 32 distinct banks; in the
+// variable step the two rows' slots are unrelated and collide in one bank
+// pair when their slot indices have equal parity (a 2-way conflict on about
+// half the reads; a build without it was no faster, tools/occupancy.py).
+// The TPU's split form bcm^T (bcm x) - x existed only because the (E, E)
+// Gram did not fit VMEM; the gather form here has no Gram, so the large
+// kernel is the same arithmetic as the tile kernel, in a smaller tile.
 //
 // What bounds it. Global memory traffic is 256 B in and 64 B out per frame
 // per decode, so neither kernel is bound by HBM. Per real edge and
@@ -50,20 +50,27 @@
 // precise contracts against their IEEE plain versions, but for a few frames
 // on the large codes at 1-2 dB that the same algorithm in IEEE f32 decides
 // as the kernel does (ops/cuda_bp.py).
-// Min-sum does only compares; its load-compute-store skeleton bounds it.
-// Every operand stays on chip; at block_32_64's 48 registers a thread, 5
-// tile blocks of 8 warps fit an SM. The large-code block's shared memory
-// holds it to one block an SM, where 16 warps hid too little latency: with
-// 32 rows the large SPA took 1.24x as long as with 64 (tools/occupancy.py).
+// Min-sum does only compares; its load-compute-store skeleton bounds it,
+// and the latency of its shared-memory loads. Every operand stays on chip;
+// at block_32_64's 48 registers a thread, 5 tile blocks of 8 warps fit an
+// SM. The large-code block's shared memory holds it to one block an SM,
+// where 16 warps hid too little latency: with 32 rows the large SPA took
+// 1.27x and the large min-sum 1.13x as long as with 64 (tools/occupancy.py).
+// The early-exit form takes the syndrome of each iteration's decisions; the
+// large-code kernels take it in the next check step, beside the loads that
+// step makes anyway, so it costs no barrier of its own (see the kernel).
 // On an NVIDIA H100 80GB HBM3 at 700 W: block_32_64 131,072 frames x 20
 // iterations 1.357 ms (sum-product; 2.213 with libm's phi) and 0.909 ms
-// (min-sum); gen_256_512 16,384 x 20 1.658 ms (sum-product; 2.973 with
-// libm's phi and 32 rows). Two costs of this design: a code that fits the
-// tile but is sent to the large-code SPA (impl="split"; no "auto" route
-// does so) now gets one block of 32 warps an SM where two of 16 fitted,
-// 2.450 ms against 1.654 on block_32_64; and ptxas holds the tile SPA to 48
-// registers with a spill, 8 B at WR = 6 and 20 B at WR = 7 and 8, where the
-// libm form spilled none.
+// (min-sum); gen_256_512 16,384 x 20 1.62 ms (sum-product; 2.973 with
+// libm's phi and 32 rows) and 1.06 ms (min-sum; 1.21 with 32 rows), and a
+// sweep step's decode at 1-2 dB (131,072 frames, early exit) 14.0 ms
+// (sum-product; 14.6 with the syndrome's own pass) and 9.5 ms (min-sum;
+// 10.8 with 32 rows and the syndrome's own pass). Two costs of this
+// design: a code that fits the tile but is sent to the large-code kernels
+// (impl="split"; no "auto" route does so) gets one block of 32 warps an SM
+// where two of 16 fitted, 2.35 ms against 1.65 on block_32_64 (SPA; min-sum
+// 1.51 against 1.16); and ptxas holds the tile SPA to 48 registers with a
+// spill, 4 B at WR = 6 and 20 B at WR = 7, where the libm form spilled none.
 //
 // Rounding order, shared with the plain versions: the check-row phi sum is
 // the pairwise tree of pallas_bp._tree (Wr = 6: ((x0+x3)+(x1+x4))+(x2+x5));
@@ -77,9 +84,9 @@
 namespace {
 
 constexpr int kTileFrames = 32, kTileRows = 8;     // tile kernel
-// large-code kernel: 16 frames; 64 rows of threads for the sum-product,
-// whose one block an SM hid too little latency with 16 warps, 32 for min-sum
-constexpr int kLargeFrames = 16, kLargeRowsSp = 64, kLargeRowsMs = 32;
+// large-code kernel: 16 frames and 64 rows of threads (32 warps), since its
+// one block an SM hid too little latency with 16 warps
+constexpr int kLargeFrames = 16, kLargeRows = 64;
 constexpr int kWcMax = 4;                // largest column weight taken
 constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
 constexpr float kPhiClamp = 1e4f;        // pallas_bp._PHI_CLAMP
@@ -163,17 +170,23 @@ __device__ __forceinline__ float log_tanh_half(float x) {
 // each log tanh by log_tanh_half. Every w <= 0, so w - U >= 0; where the
 // other slots all have w = 0 it is 0, and E is +-inf.
 // Pad slots act as t = +1e30: w = 0, sign +1, so they are skipped.
+// With syn, returns the parity of check m over the decisions vh (the
+// syndrome bit of the previous variable step), else 0.
 template <int WR, int F>
-__device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
-                                                 int m, int M, int f) {
+__device__ __forceinline__ int check_sumproduct(float* msg, const int* sv,
+                                                const int8_t* vh, int m,
+                                                int M, int f, bool syn) {
   float w[WR], u[WR], sg[WR];
   float P = 1.f;
+  int par = 0;
 #pragma unroll
   for (int k = 0; k < WR; ++k) {
     const int e = k * M + m;
+    const int j = sv[e];
     w[k] = 0.f;
     sg[k] = 1.f;
-    if (sv[e] >= 0) {
+    if (j >= 0) {
+      if (syn) par ^= vh[j * (F + 1) + f];
       const float t = msg[e * F + f];
       sg[k] = t < 0.f ? -1.f : 1.f;
       const float x = log_tanh_half(fabsf(t));
@@ -193,23 +206,54 @@ __device__ __forceinline__ void check_sumproduct(float* msg, const int* sv,
       msg[e * F + f] = (negP * sg[k]) * log_tanh_half(v);
     }
   }
+  return par;
 }
 
-// Min-sum check step, in place: Lq -> Lr.
+// The messages of check m, the variables of its slots and the check's
+// parity over the decisions vh, loaded apart from the arithmetic (the
+// parity's loads beside the messages', where the min-sum step's latency
+// hides them; unused, as in the fixed form, they are not issued). Pad
+// slots: t = +1e30 (never the minimum of a real row), j = -1.
+template <int WR>
+struct CheckRow {
+  float t[WR];
+  int j[WR];
+  int par;
+};
+
+template <int WR, int F>
+__device__ __forceinline__ CheckRow<WR> load_check(const float* msg,
+                                                   const int* sv,
+                                                   const int8_t* vh, int m,
+                                                   int M, int f) {
+  CheckRow<WR> row;
+  row.par = 0;
+#pragma unroll
+  for (int k = 0; k < WR; ++k) {
+    const int e = k * M + m;
+    row.j[k] = sv[e];
+    row.t[k] = row.j[k] >= 0 ? msg[e * F + f] : kPadBig;
+    row.par ^= row.j[k] >= 0 ? vh[row.j[k] * (F + 1) + f] : 0;
+  }
+  return row;
+}
+
+// Min-sum check step on a loaded row, in place: Lq -> Lr.
 //   Lr = sign * (prod_alpha * min over the other slots of |Lq|), where
 //   prod_alpha is the row sign product, or 0 when the row holds a zero.
-// Pad slots act as t = +1e30 (never the minimum of a real row).
+// With syn, returns the row's parity over the decisions vh, else 0.
 template <int WR, int F>
-__device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
-                                             int M, int f, float norm_offset,
-                                             float norm_scale, int use_offset,
-                                             int use_scale) {
+__device__ __forceinline__ int check_minsum(float* msg,
+                                            const CheckRow<WR>& row, int m,
+                                            int M, int f, bool syn,
+                                            float norm_offset,
+                                            float norm_scale, int use_offset,
+                                            int use_scale) {
   float beta[WR], sg[WR], pre[WR];
   float P = 1.f;
 #pragma unroll
   for (int k = 0; k < WR; ++k) {
-    const int e = k * M + m;
-    const float t = sv[e] >= 0 ? msg[e * F + f] : kPadBig;
+    const float t = row.t[k];
     beta[k] = fabsf(t);
     sg[k] = t < 0.f ? -1.f : 1.f;
     P = P * sg[k];
@@ -233,48 +277,63 @@ __device__ __forceinline__ void check_minsum(float* msg, const int* sv, int m,
       me = me < 0.f ? 0.f : me;
     }
     if (use_scale) me = me * norm_scale;
-    const int e = k * M + m;
-    if (sv[e] >= 0) msg[e * F + f] = sg[k] * (prod_alpha * me);
+    if (row.j[k] >= 0) msg[(k * M + m) * F + f] = sg[k] * (prod_alpha * me);
   }
+  return syn ? row.par : 0;
 }
 
-// Variable step for variable j of frame f, reading the check messages of its
-// edges. Writes the tentative decision (SPA: tot + deg*r <= 0; min-sum:
-// r + tot < 0) and/or the next edge messages base + (sum over the other
-// edges), base = (deg - 1)*r for the SPA and r for min-sum.
-template <bool SP, int F>
-__device__ __forceinline__ void var_step(float* msg, const float* r,
-                                         const int* vs, int8_t* vh, int j,
-                                         int Wc, int f, bool write_msgs,
-                                         bool write_vh) {
-  const float rj = r[j * (F + 1) + f];
+// The check messages of variable j's edges (pads read 0), their slots and
+// -rx, loaded apart from the arithmetic as CheckRow is.
+struct VarRow {
+  float rj;
   float e[kWcMax];
   int s[kWcMax];
-  int d = 0;
+};
+
+template <int F>
+__device__ __forceinline__ VarRow load_var(const float* msg, const float* r,
+                                           const int* vs, int j, int Wc,
+                                           int f) {
+  VarRow v;
+  v.rj = r[j * (F + 1) + f];
 #pragma unroll
   for (int k = 0; k < kWcMax; ++k) {
-    s[k] = k < Wc ? vs[j * Wc + k] : -1;
-    e[k] = s[k] >= 0 ? msg[s[k] * F + f] : 0.f;
-    d += s[k] >= 0;
+    v.s[k] = k < Wc ? vs[j * Wc + k] : -1;
+    v.e[k] = v.s[k] >= 0 ? msg[v.s[k] * F + f] : 0.f;
   }
+  return v;
+}
+
+// Variable step for variable j of frame f on its loaded row. Writes the
+// tentative decision (SPA: tot + deg*r <= 0; min-sum: r + tot < 0) and/or
+// the next edge messages base + (sum over the other edges), base =
+// (deg - 1)*r for the SPA and r for min-sum.
+template <bool SP, int F>
+__device__ __forceinline__ void var_step(float* msg, int8_t* vh,
+                                         const VarRow& v, int j, int Wc,
+                                         int f, bool write_msgs,
+                                         bool write_vh) {
+  int d = 0;
+#pragma unroll
+  for (int k = 0; k < kWcMax; ++k) d += v.s[k] >= 0;
   if (write_vh) {
     float tot = 0.f;
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k)
-      if (k < Wc) tot = tot + e[k];
+      if (k < Wc) tot = tot + v.e[k];
     vh[j * (F + 1) + f] =
-        SP ? (tot + (float)d * rj <= 0.f) : (rj + tot < 0.f);
+        SP ? (tot + (float)d * v.rj <= 0.f) : (v.rj + tot < 0.f);
   }
   if (write_msgs) {
-    const float base = SP ? (float)(d - 1) * rj : rj;
+    const float base = SP ? (float)(d - 1) * v.rj : v.rj;
 #pragma unroll
     for (int k = 0; k < kWcMax; ++k) {
-      if (s[k] < 0) continue;
+      if (v.s[k] < 0) continue;
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < kWcMax; ++i)
-        if (i != k && i < Wc) acc = acc + e[i];
-      msg[s[k] * F + f] = base + acc;
+        if (i != k && i < Wc) acc = acc + v.e[i];
+      msg[v.s[k] * F + f] = base + acc;
     }
   }
 }
@@ -302,9 +361,8 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   float* r = msg + E * F;
   int* sv = reinterpret_cast<int*>(r + N * kRStride);
   int* vs = sv + E;
-  int* done = vs + N * Wc;
-  int* unsat = done + F;
-  int8_t* vh = reinterpret_cast<int8_t*>(unsat + F);
+  int* flags = vs + N * Wc;     // 2F per-frame flags of the early-exit form
+  int8_t* vh = reinterpret_cast<int8_t*>(flags + 2 * F);
 
   const int f = threadIdx.x, y = threadIdx.y;
   const int tid = y * F + f;
@@ -317,8 +375,12 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     const long long g = f0 + ff;
     r[j * kRStride + ff] = g < B ? -rx[g * N + j] : 0.f;
   }
+  // the tile loop's unsat and done flags (the large-code loop clears its own);
   // frames past B count as done from the start (pallas_bp._pad_done)
-  if (y == 0) done[f] = f0 + f >= B;
+  if (y == 0) {
+    flags[f] = 0;
+    flags[F + f] = f0 + f >= B;
+  }
   __syncthreads();
   for (int e = y; e < E; e += R) {
     const int j = sv[e];
@@ -330,54 +392,81 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
   __syncthreads();
 
-  auto check = [&](int m) {
-    if constexpr (SP)
-      check_sumproduct<WR, F>(msg, sv, m, M, f);
-    else
-      check_minsum<WR, F>(msg, sv, m, M, f, norm_offset, norm_scale,
-                          use_offset, use_scale);
+  // This thread's checks (m = y, y + R, ...) and variables of frame f. With
+  // syn, checks() returns whether any of its checks has odd parity over vh.
+  auto check = [&](int m, bool syn) {
+    if constexpr (SP) {
+      return check_sumproduct<WR, F>(msg, sv, vh, m, M, f, syn);
+    } else {
+      return check_minsum<WR, F>(msg, load_check<WR, F>(msg, sv, vh, m, M, f),
+                                 m, M, f, syn, norm_offset, norm_scale,
+                                 use_offset, use_scale);
+    }
+  };
+  auto checks = [&](bool syn) {
+    int odd = 0;
+    for (int m = y; m < M; m += R) odd |= check(m, syn);
+    return odd;
+  };
+  auto vars = [&](bool write_msgs, bool write_vh) {
+    for (int j = y; j < N; j += R)
+      var_step<SP, F>(msg, vh, load_var<F>(msg, r, vs, j, Wc, f), j, Wc, f,
+                      write_msgs, write_vh);
   };
 
+  bool live = f0 + f < B;
   if (!early_exit) {
     // iterations-1 full steps, then a trailing check step and the decision
-    const bool live = !done[f];
     for (int it = 0; it + 1 < iterations; ++it) {
-      if (live)
-        for (int m = y; m < M; m += R)
-          check(m);
+      if (live) checks(false);
       __syncthreads();
-      if (live)
-        for (int j = y; j < N; j += R)
-          var_step<SP, F>(msg, r, vs, vh, j, Wc, f, true, false);
+      if (live) vars(true, false);
       __syncthreads();
     }
     if (live) {
       if (iterations > 0) {
-        for (int m = y; m < M; m += R)
-          check(m);
+        checks(false);
       } else {
         for (int e = y; e < E; e += R) msg[e * F + f] = 0.f;
       }
     }
     __syncthreads();
-    if (live)
-      for (int j = y; j < N; j += R)
-        var_step<SP, F>(msg, r, vs, vh, j, Wc, f, false, true);
+    if (live) vars(false, true);
+  } else if constexpr (F == kLargeFrames) {
+    // The large-code blocks run nearly all their iterations at the sweep's
+    // 1-2 dB, so here the syndrome costs no barrier of its own: two barriers
+    // an iteration. The check step of iteration it >= 1 also takes each
+    // check's parity over the decisions of iteration it - 1; a frame none
+    // of whose checks is odd satisfies H, keeps those decisions and stops
+    // before this iteration's variable step, which writes the next messages
+    // and decisions. flags[it & 1] gathers a frame's odd checks; the other
+    // half is cleared for the next iteration between the two barriers, when
+    // no thread reads or writes it. The block stops when all its frames
+    // have, one check step after the last one satisfied H: where blocks stop
+    // early (the tile at 4 dB) that step costs more than the barriers save.
+    for (int it = 0; it < iterations; ++it) {
+      const bool syn = it > 0;
+      const int odd = live ? checks(syn) : 0;
+      if (odd) flags[(it & 1) * F + f] = 1;
+      if (__syncthreads_and(!live || (syn && !odd))) break;
+      if (live && syn && !flags[(it & 1) * F + f]) live = false;
+      if (y == 0) flags[((it + 1) & 1) * F + f] = 0;
+      if (live) vars(true, true);
+      __syncthreads();
+    }
   } else {
     // each iteration: check step, tentative decision, syndrome over all M
     // checks; a frame that satisfies H keeps that decision and stops. The
     // block stops when all its frames have.
+    int* unsat = flags;
+    int* done = flags + F;
     for (int it = 0; it < iterations; ++it) {
       if (__syncthreads_and(done[f])) break;
-      const bool live = !done[f];
+      live = !done[f];
       if (y == 0) unsat[f] = 0;
-      if (live)
-        for (int m = y; m < M; m += R)
-          check(m);
+      if (live) checks(false);
       __syncthreads();
-      if (live)
-        for (int j = y; j < N; j += R)
-          var_step<SP, F>(msg, r, vs, vh, j, Wc, f, true, true);
+      if (live) vars(true, true);
       __syncthreads();
       if (live) {
         for (int m = y; m < M; m += R) {
@@ -442,8 +531,7 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
 #undef BP_CASE
 }
 
-// R_SP and R_MS: the rows of threads of the sum-product and min-sum blocks
-template <int F, int R_SP, int R_MS>
+template <int F, int R>
 int decode(int sumproduct, const float* rx, int8_t* out, int B,
            const int* slot_var, const int* var_slots, int M, int N, int Wr,
            int Wc, int iterations, int early_exit, float norm_offset,
@@ -453,14 +541,14 @@ int decode(int sumproduct, const float* rx, int8_t* out, int B,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return sumproduct
-             ? dispatch<true, F, R_SP>(Wr, rx, out, B, slot_var, var_slots, M,
-                                       N, Wc, iterations, early_exit,
-                                       norm_offset, norm_scale, use_offset,
-                                       use_scale, s)
-             : dispatch<false, F, R_MS>(Wr, rx, out, B, slot_var, var_slots, M,
-                                        N, Wc, iterations, early_exit,
-                                        norm_offset, norm_scale, use_offset,
-                                        use_scale, s);
+             ? dispatch<true, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
+                                    N, Wc, iterations, early_exit,
+                                    norm_offset, norm_scale, use_offset,
+                                    use_scale, s)
+             : dispatch<false, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
+                                     N, Wc, iterations, early_exit,
+                                     norm_offset, norm_scale, use_offset,
+                                     use_scale, s);
 }
 
 // y = log_tanh_half(x), elementwise: the check step's function alone, for
@@ -471,13 +559,13 @@ __global__ void phi_probe_kernel(const float* __restrict__ x,
   if (i < n) y[i] = log_tanh_half(x[i]);
 }
 
-template <int F, int R_SP, int R_MS>
+template <int F, int R>
 int occupancy(int sumproduct, int Wr, int smem, int* blocks, int* threads) {
   const void* fn = nullptr;
 #define BP_FN(W)                                                              \
   case W:                                                                     \
-    fn = sumproduct ? (const void*)bp_kernel<W, true, F, R_SP>                \
-                    : (const void*)bp_kernel<W, false, F, R_MS>;              \
+    fn = sumproduct ? (const void*)bp_kernel<W, true, F, R>                   \
+                    : (const void*)bp_kernel<W, false, F, R>;                 \
     break;
   switch (Wr) {
     BP_FN(2) BP_FN(3) BP_FN(4) BP_FN(5) BP_FN(6) BP_FN(7) BP_FN(8)
@@ -485,7 +573,7 @@ int occupancy(int sumproduct, int Wr, int smem, int* blocks, int* threads) {
       return cudaErrorInvalidValue;
   }
 #undef BP_FN
-  *threads = F * (sumproduct ? R_SP : R_MS);
+  *threads = F * R;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -516,10 +604,10 @@ int bp_phi_probe(const float* x, float* y, int n, void* stream) {
 // of one block, into *threads.
 int bp_occupancy(int large, int sumproduct, int Wr, int smem, int* blocks,
                  int* threads) {
-  return large ? occupancy<kLargeFrames, kLargeRowsSp, kLargeRowsMs>(
-                     sumproduct, Wr, smem, blocks, threads)
-               : occupancy<kTileFrames, kTileRows, kTileRows>(
-                     sumproduct, Wr, smem, blocks, threads);
+  return large ? occupancy<kLargeFrames, kLargeRows>(sumproduct, Wr, smem,
+                                                     blocks, threads)
+               : occupancy<kTileFrames, kTileRows>(sumproduct, Wr, smem,
+                                                   blocks, threads);
 }
 
 // Shared memory one block of the tile (bp_smem_bytes) or large-code
@@ -540,7 +628,7 @@ int bp_decode(int sumproduct, const float* rx, int8_t* out, int B,
               const int* slot_var, const int* var_slots, int M, int N, int Wr,
               int Wc, int iterations, int early_exit, float norm_offset,
               float norm_scale, int use_offset, int use_scale, void* stream) {
-  return decode<kTileFrames, kTileRows, kTileRows>(
+  return decode<kTileFrames, kTileRows>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
       early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
 }
@@ -549,7 +637,7 @@ int bp_decode_large(int sumproduct, const float* rx, int8_t* out, int B,
                     int Wr, int Wc, int iterations, int early_exit,
                     float norm_offset, float norm_scale, int use_offset,
                     int use_scale, void* stream) {
-  return decode<kLargeFrames, kLargeRowsSp, kLargeRowsMs>(
+  return decode<kLargeFrames, kLargeRows>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
       early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
 }

@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
-           "load_variant"]
+           "load_variant", "variant_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
@@ -96,14 +96,20 @@ def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
     return _typed(ctypes.CDLL(str(build()[name][0])), name)
 
 
+def variant_path(name: str, text: str) -> Path:
+    """Where load_variant builds the library of ``text``, a variant of
+    ``csrc/<name>.cu``; its compiler log is beside it, suffix ".log"."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(text.encode())
+    return BUILD_DIR / "variants" / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def load_variant(name: str, text: str) -> ctypes.CDLL:
     """A library built as ``csrc/<name>.cu`` is, from ``text``, a variant of
     that source (for a tool that times one), typed as load_library's."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(text.encode())
-    src = BUILD_DIR / "variants" / f"{name}-{h.hexdigest()[:16]}.cu"
-    lib = src.with_name(f"lib{src.stem}.so")
+    lib = variant_path(name, text)
     if not lib.exists():
+        src = lib.with_name(lib.name.removeprefix("lib")).with_suffix(".cu")
         src.parent.mkdir(parents=True, exist_ok=True)
         src.write_text(text)
         _finish({lib: _compile(src, lib)})
@@ -151,6 +157,8 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                    i,           # iterations
                    p],          # cudaStream_t
                "bp_exact_smem_bytes": [i] * 4,
+               # sumproduct, Wr, smem bytes, int* blocks, int* threads
+               "bp_exact_occupancy": [i, i, i, p, p],
                "bp_exact_error_string": [i]}
     for fn, args in fns.items():
         getattr(lib, fn).argtypes = args

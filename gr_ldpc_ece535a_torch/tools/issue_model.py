@@ -24,6 +24,15 @@ the SM clock it runs at, and the issue time the two imply.
          arithmetic, study_phi minus study_stub back to back; and the same
          model for the SFU phi, the shipped kernel's check step now.
 
+The exact sum-product kernel (csrc/bp_exact.cu) evaluates tanhf, an IEEE
+division and logf once a real edge and iteration, from libm, bit for bit
+with torch. The probe counts each (exact_mix), and the rest of its check
+step's arithmetic is the static difference between the shipped kernel
+(WR = 6) and its skeleton (tools/exact_probe.py) less those three, an edge
+of the six slots' worth. Printed as the check step's issue and MUFU time at
+the SM clock the exact SPA holds back to back (exact_floor_ms; chip_smoke.py
+records the floor of the three libm calls alone).
+
 The min-sum tile kernel has no transcendental, so its model counts
 shared-memory wavefronts instead (minsum_wavefronts): every message, table,
 -rx and decision access of the w-major tile min-sum (bp_study_ms.cu's
@@ -50,8 +59,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
-           "by_pipe", "shipped_phi", "under_load",
-           "warp_executions", "issue_ms", "minsum_wavefronts", "main"]
+           "by_pipe", "shipped_phi", "under_load", "probe_sass", "exact_mix",
+           "exact_floor_ms", "warp_executions", "issue_ms",
+           "minsum_wavefronts", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
 # takes FP32 add/multiply/multiply-add and integer multiply(-add); alu the
@@ -78,7 +88,22 @@ extern "C" __global__ void log_tanh_half_probe(const float* x, float* y,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) y[i] = logf(tanhf(x[i] * 0.5f));
 }
+// the exact SPA's check step, one function each, as bp_exact.cu writes them
+extern "C" __global__ void exact_tanhf_probe(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = tanhf(x[i] / 2.f);
+}
+extern "C" __global__ void exact_logf_probe(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = logf(x[i]);
+}
+extern "C" __global__ void exact_division_probe(const float* x, float* y,
+                                                int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = (1.f + x[i]) / (1.f - x[i]);
+}
 """
+EXACT_PARTS = ("tanhf", "logf", "division")   # exact_<part>_probe
 _FUNCTION = re.compile(r"\s+Function : (\S+)")
 _INSTR = re.compile(
     r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
@@ -114,6 +139,24 @@ def by_pipe(opcodes) -> dict[str, int]:
     """Instruction counts a pipe, with "issue" the total."""
     c = collections.Counter(PIPES.get(o, "other") for o in opcodes)
     return {"issue": len(opcodes), **{p: c[p] for p in ("fma", "alu", "xu")}}
+
+
+def exact_mix(sass: str) -> dict[str, list[str]]:
+    """{part: opcodes} of the exact SPA's libm calls (EXACT_PARTS), each the
+    region between its probe kernel's load and store, in ``sass``, the
+    probe library's cuobjdump text (probe_sass)."""
+    fns = sass_functions(sass)
+    return {part: pair_region(next(ops for name, ops in fns.items()
+                                   if f"exact_{part}_probe" in name))
+            for part in EXACT_PARTS}
+
+
+def exact_floor_ms(counts: dict[str, int], code, frames: int, steps: int,
+                   sms: int, clock_mhz: float) -> dict[str, float]:
+    """issue_ms of ``counts`` instructions a pipe once a real edge, frame
+    and iteration, 32 frames a warp: the exact SPA's check step."""
+    return issue_ms(counts, int(code.H.sum()) * frames * steps / 32, sms,
+                    clock_mhz)
 
 
 def warp_executions(code, frames: int, steps: int) -> float:
@@ -157,7 +200,8 @@ def sass_dump(lib: Path) -> str:
                           timeout=300).stdout
 
 
-def _probe_sass() -> str:
+def probe_sass() -> str:
+    """cuobjdump text of PROBE, built with the port's flags into _build/."""
     from ..ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src, lib = BUILD_DIR / "issue_probe.cu", BUILD_DIR / "libissue_probe.so"
@@ -220,7 +264,8 @@ def main() -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[card] {card}", flush=True)
 
-    probe = next(ops for name, ops in sass_functions(_probe_sass()).items()
+    probes = probe_sass()
+    probe = next(ops for name, ops in sass_functions(probes).items()
                  if "log_tanh_half_probe" in name)
     pair = pair_region(probe)
     pair_pipes = by_pipe(pair)
@@ -300,11 +345,53 @@ def main() -> dict:
           f"shared-memory wavefronts on {sms} SMs at {clock['study_ms_ref']} "
           f"MHz -> {wave_ms:.4f} ms = {wave_ms / loaded['study_ms_ref']:.3f} "
           f"of study_ms_ref back to back [{card}]", flush=True)
+    exact = _exact_model(probes, code, rx, frames, steps, sms, card)
     return {"card": card, "pair": pair_pipes, "sfu_phi": sfu_pipes,
             "kernels": kernels, "clock_mhz": clock, "model_ms": model,
             "sfu_model_ms": sfu_model, "measured_ms": ms,
             "loaded_ms": loaded, "ms_kernels": ms_kernels,
-            "minsum_wavefront_ms": wave_ms}
+            "minsum_wavefront_ms": wave_ms, "exact": exact}
+
+
+def _exact_model(probes: str, code, rx, frames: int, steps: int, sms: int,
+                 card: str) -> dict:
+    """The exact SPA's check step: its libm calls and the rest by pipe, an
+    edge, and the issue and MUFU time they imply at the SM clock the kernel
+    holds back to back."""
+    from ..ops import _build, cuda_bp
+    from . import exact_probe
+
+    parts = {p: by_pipe(ops) for p, ops in exact_mix(probes).items()}
+    for p, c in parts.items():
+        print(f"[exact] {p} as the exact SPA writes it: {c}", flush=True)
+    text = exact_probe.variant_source(_build.SOURCES["bp_exact"].read_text(),
+                                      "skeleton")
+    _build.load_variant("bp_exact", text)
+    skeleton = _build.variant_path("bp_exact", text)
+    kernel = "bp_exact_kernelILi6ELb1E"         # WR = 6, sum-product
+    whole = {lib: by_pipe(next(ops for name, ops in sass_functions(
+                 sass_dump(path)).items() if kernel in name))
+             for lib, path in (("shipped", _build.build()["bp_exact"][0]),
+                               ("skeleton", skeleton))}
+    libm = {k: sum(c[k] for c in parts.values()) for k in RATES}
+    rest = {k: (whole["shipped"][k] - whole["skeleton"][k]) / 6 - libm[k]
+            for k in RATES}
+    print(f"[exact] static SASS of the WR = 6 exact SPA: shipped "
+          f"{whole['shipped']}, skeleton {whole['skeleton']}; the check "
+          f"step's arithmetic an edge beside its libm calls {libm}: "
+          f"rest {rest}", flush=True)
+    fn = functools.partial(cuda_bp.cuda_decode_sumproduct, rx, code, steps)
+    loaded, samples = under_load(fn)
+    mhz = statistics.median(s[0] for s in samples)
+    total = {k: libm[k] + rest[k] for k in RATES}
+    model = exact_floor_ms(total, code, frames, steps, sms, mhz)
+    print(f"[model] exact SPA {code.name} {frames} x {steps}: "
+          f"{loaded:.4f} ms a call back to back at clocks.sm {mhz} MHz; its "
+          f"check step an edge {total} -> " + ", ".join(
+              f"{p} {v:.4f} ms" for p, v in model.items()) + f" [{card}]",
+          flush=True)
+    return {"parts": parts, "whole": whole, "rest": rest, "clock_mhz": mhz,
+            "loaded_ms": loaded, "model_ms": model}
 
 
 if __name__ == "__main__":
