@@ -13,7 +13,10 @@ Phases, each of which raises on a miss:
               unroll-1 sibling; the SASS of the w-major SPA kernels'
               log tanh(x/2) (bp_phi_probe) by pipe, and how many blocks of
               each w-major tile and of the exact kernels an SM holds
-              (occupancy)
+              (occupancy); for block_32_64, sim_50_100 and gen_200_400, the
+              instance the tile and exact kernels take (a register tier or
+              the table route: the library's dispatch must agree with
+              cuda_bp.tier), with its registers, spills and blocks an SM
   phi      the SPA kernels' log tanh(x/2) alone on the card, on 10^5 points
               in [2^-20, 40] and at 0, 1e-30, 87, 88, 1e30, inf and NaN,
               against float64: |error| <= max(2^-16 |phi|, 2^-20), beside
@@ -24,7 +27,11 @@ Phases, each of which raises on a miss:
               cases; the tile SPA against the f32 path of ops/decode.py
               under early exit (no two different valid codewords); the
               exact kernels there (0 mismatching frames) and
-              against the f32 path of ops/decode.py; the large-code kernels
+              against the f32 path of ops/decode.py; the tile and exact
+              min-sum kernels at block_32_64, sim_50_100 (register tiers)
+              and gen_200_400 (the table route) at 1, 5 and 20 iterations
+              on 4 dB, tied-minima (rx on a 0.5 grid), all-zero, half-zero,
+              +-30 x codeword and +-inf/NaN inputs (0 mismatching frames); the large-code kernels
               on gen_256_512 and gen_320_640, and the large min-sum on the
               zero and +-30 x codeword inputs there; each sweep step's
               decoder on the rx that step draws, at the shapes of the
@@ -98,7 +105,10 @@ the two w-major SPA records also carry sfu_ms: the MUFU instructions of
 their log tanh (counted in its SASS), two an edge and check step, at 16 a
 clock an SM; the exact SPA's sfu_ms and issue_ms are the MUFU and all
 instructions of its tanhf, IEEE division and logf, once an edge and
-iteration, at 16 MUFU and 4 issues a clock an SM.
+iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
+carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
+minsum_wavefronts, exact_minsum_wavefronts; a register tier reads no table
+and no -rx) at one a clock an SM, at the SM clock the kernel holds.
 The line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -253,8 +263,9 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
                                                      time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
-        by_pipe, exact_floor_ms, exact_mix, probe_sass, sass_dump,
-        sass_functions, shipped_phi, under_load)
+        by_pipe, exact_floor_ms, exact_minsum_wavefronts, exact_mix,
+        minsum_wavefronts, probe_sass, sass_dump, sass_functions, shipped_phi,
+        under_load, wavefront_ms)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -275,19 +286,28 @@ def main() -> int:
     for _, build_log in built.values():      # one line per kernel
         name, notes = None, []
         for line in build_log.splitlines() + ["Compiling (end)"]:
-            kernel = re.search(
-                r"(bp_(?:exact_)?kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
+            # bp_kernel<WR, SP, F, R>, bp_exact_kernel<WR, SP, R, tier>,
+            # bp_minsum_pairs<WR>
+            kernel = re.search(r"bp_kernelILi(\d+)ELb(\d)ELi(\d+)E", line)
+            exact = re.search(r"bp_exact_kernelILi(\d+)ELb(\d)ELi\d+ELi(\d+)E",
+                              line)
+            pairs = re.search(r"bp_minsum_pairsILi(\d+)E", line)
             study = (cuda_study.instance_of(line)
                      or cuda_study_ms.instance_of(line))
             if "Compiling" in line:
                 if name:
                     log(f"    {name}: {'; '.join(notes)}")
                 name, notes = None, []
-                if kernel:
-                    tile = {None: "exact", "32": "tile", "16": "large"}[kernel[4]]
-                    name = (f"{kernel[1]}<WR={kernel[2]}, "
-                            f"{'sumproduct' if kernel[3] == '1' else 'minsum'}, "
-                            f"{tile}>")
+                if pairs:
+                    name = f"bp_minsum_pairs<WR={pairs[1]}>"
+                elif kernel:
+                    name = (f"bp_kernel<WR={kernel[1]}, "
+                            f"{'sumproduct' if kernel[2] == '1' else 'minsum'}, "
+                            f"{ {'32': 'tile', '16': 'large'}[kernel[3]]}>")
+                elif exact:
+                    name = (f"bp_exact_kernel<WR={exact[1]}, "
+                            f"{'sumproduct' if exact[2] == '1' else 'minsum'}, "
+                            f"exact, tier {exact[3]}>")
                 elif study:
                     name = study
             elif name and ("Used" in line or "spill" in line):
@@ -344,6 +364,31 @@ def main() -> int:
         log(f"[occupancy] exact {method} {c.name}, "
             f"{cuda_bp.exact_smem_bytes(c)} B of shared memory a block: "
             f"{blocks} blocks of {warps} warps an SM")
+    # the instance each code takes: the exact kernels' register tier (lever
+    # 1) or their table route (the library's dispatch against
+    # cuda_bp.tier), and the tile min-sum (two frames a thread), with
+    # ptxas's registers and spills and the blocks an SM of each
+    for c in (get_code("block_32_64"), get_code("sim_50_100"), gen[400]):
+        t = wmajor_tables(c)
+        for method in ("minsum", "sumproduct"):
+            sp = method == "sumproduct"
+            lib_tier = xlib.bp_exact_tier(int(sp), t.M, t.N)
+            if lib_tier != cuda_bp.tier(c, sp):
+                raise AssertionError(f"exact {method} {c.name}: dispatch "
+                                     f"takes tier {lib_tier}, cuda_bp.tier "
+                                     f"{cuda_bp.tier(c, sp)}")
+            inst = f"bp_exact_kernel<WR={t.Wr}, {method}, exact, tier {lib_tier}>"
+            blocks, warps = cuda_bp.occupancy(c, "exact", sp)
+            log(f"[instance] exact {method} {c.name} (M {t.M}, N {t.N}): "
+                f"tier {lib_tier} "
+                f"{'(registers)' if lib_tier else '(the table route)'}, "
+                f"{regs.get(inst, -1)} registers, spills {spills.get(inst)}, "
+                f"{blocks} blocks of {warps} warps an SM")
+        inst = f"bp_minsum_pairs<WR={t.Wr}>"
+        blocks, warps = cuda_bp.occupancy(c, "tile", False)
+        log(f"[instance] tile minsum {c.name}: {inst}, {regs.get(inst, -1)} "
+            f"registers, spills {spills.get(inst)}, {blocks} blocks of "
+            f"{warps} warps an SM")
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
                                     "sim_24_48", "sim_50_100")] + list(gen.values()):
         t, x = wmajor_tables(c), check_major_tables(c)
@@ -421,6 +466,27 @@ def main() -> int:
     def codewords(code, B, ebn0, seed):
         return make_inputs(code, B, torch.Generator(device=dev).manual_seed(seed),
                            dev, ebn0)
+
+    def minsum_inputs(c, B, seed):
+        """rx for the min-sum kernels' rules: 4 dB, rx rounded to multiples
+        of 0.5 at 1 dB (rows with tied minima), zero, half-zero, +-30 x
+        codeword, and 4 dB with 2% of its entries +inf, -inf or NaN."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cw = bpsk_map(encode_bits(torch.randint(
+            0, 2, (B, c.K), generator=g, device=dev, dtype=torch.int8), c))
+        rx4 = awgn(g, cw, PARITY_EBN0_DB)
+        half = torch.zeros_like(rx4)
+        half[B // 2:, :c.N // 2] = 1.0
+        special = rx4.clone().view(-1)
+        idx = torch.randperm(special.numel(), generator=g,
+                             device=dev)[:special.numel() // 50]
+        special[idx] = torch.tensor([math.inf, -math.inf, math.nan],
+                                    device=dev)[torch.arange(len(idx),
+                                                             device=dev) % 3]
+        return {"4 dB": rx4, "tied minima": torch.round(awgn(g, cw, 1.0) * 2)
+                / 2, "all-zero": torch.zeros_like(rx4), "half-zero": half,
+                "+-30 x codeword": 30.0 * cw,
+                "+-inf and NaN": special.view(rx4.shape)}
 
     def bins(vk, vp, code):
         """Four-bin decomposition of the mismatched frames
@@ -605,6 +671,26 @@ def main() -> int:
             vk, vp = run_pair(method, rx, code, iters, False, mode="exact")
             compare(f"{method} exact {tag}", vk, vp, code, False,
                     identical=True)
+
+    # the redesigned min-sum kernels (the tile's and the exact one; lever 1
+    # keeps a thread's rows in registers, the exact check step is one pass)
+    # against their plain versions, 0 mismatched frames, on inputs that
+    # reach every rule of the check step: 4 dB, rx on a 0.5 grid (tied
+    # minima), zero and half-zero, +-30 x codeword, and +-inf and NaN
+    # entries; at block_32_64 and sim_50_100 (register tiers) and
+    # gen_200_400 (the table route)
+    for c in (code, get_code("sim_50_100"), gen[400]):
+        for tag, rx in minsum_inputs(c, 4096, 9).items():
+            for iters in (1, 5, ITERATIONS):
+                vk, vp = run_pair("minsum", rx, c, iters, False, mode="exact")
+                compare(f"minsum exact {c.name} tier "
+                        f"{cuda_bp.tier(c, False)} {tag}, {iters} "
+                        f"iterations", vk, vp, c, False, identical=True)
+                for early_exit in (False, True):
+                    vk, vp = run_pair("minsum", rx, c, iters, early_exit)
+                    compare(f"minsum {'early_exit' if early_exit else 'fixed'}"
+                            f" {c.name} {tag}, {iters} iterations", vk, vp, c,
+                            early_exit, identical=True)
 
     # the large-code kernels on codes beyond the tile
     for c in (gen[512], gen[640]):
@@ -1057,6 +1143,36 @@ def main() -> int:
         f"(median of {len(samples)}); its libm calls an edge {parts}: MUFU "
         f"floor {floor['xu']:.4f} ms, issue floor {floor['issue']:.4f} ms "
         f"[{card}]")
+    # each min-sum kernel's shared-memory floor (smem_ms): its wavefronts
+    # (tools/issue_model.py: minsum_wavefronts, exact_minsum_wavefronts;
+    # none for the slot tables and -rx of a register tier) at one a clock
+    # an SM, at the SM clock the kernel holds back to back; the study's
+    # min-sum instances read their tables as the table route does
+    smem_ms = {}
+    for name, tile, c, frames, rxt in (
+            ("bp_minsum", "tile", code, N_FRAMES, rx4),
+            ("bp_minsum_exact", "exact", code, N_FRAMES, rx4),
+            ("bp_minsum_large", "large", big, LARGE_FRAMES,
+             codewords(big, LARGE_FRAMES, 2.0, 6))):
+        loaded, samples = under_load(functools.partial(
+            kernels["minsum"], rxt, c, ITERATIONS,
+            mode="exact" if tile == "exact" else "precise"), 2.0)
+        mhz = float(np.median([smp[0] for smp in samples]))
+        tables = tile != "exact" or cuda_bp.tier(c, False) == 0
+        waves = (exact_minsum_wavefronts(c, frames, ITERATIONS, tables)
+                 if tile == "exact" else
+                 minsum_wavefronts(c, frames, ITERATIONS,
+                                  "large" if tile == "large" else "pairs"))
+        smem_ms[name] = wavefront_ms(waves, sms, mhz)
+        log(f"[times] {name} {c.name} {frames}x{ITERATIONS}: {loaded:.4f} ms "
+            f"a call back to back at clocks.sm {mhz:.0f} MHz (median of "
+            f"{len(samples)}); {waves:.4e} shared-memory wavefronts "
+            f"({'tables' if tables else 'registers'}): floor "
+            f"{smem_ms[name]:.4f} ms [{card}]")
+        if tile == "tile":
+            for n in cuda_study_ms.INSTANCES:
+                smem_ms[n] = wavefront_ms(minsum_wavefronts(
+                    c, frames, ITERATIONS), sms, mhz)
     # the large-code kernels at the gen_256_512 sweep's shape (its steps'
     # decode: 131,072 frames, early exit), kernel only
     for method in kernels:
@@ -1218,6 +1334,7 @@ def main() -> int:
                 "bound_by": by,
                 "library_ms": None,    # no single PyTorch call decodes BP
                 **({"sfu_ms": sfu_ms[name]} if name in sfu_ms else {}),
+                **({"smem_ms": smem_ms[name]} if name in smem_ms else {}),
                 **({"issue_ms": issue_floor[name]} if name in issue_floor
                    else {})}
 
@@ -1239,7 +1356,8 @@ def main() -> int:
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -2,10 +2,12 @@
 // check-major edge layout (slot e = m*Wr + w).
 //
 // Replaces, in gr_ldpc_ece535a_tpu/ops/pallas_bp.py:
-//   bp_exact_kernel<WR, false>  <- _minsum_exact_kernel     (:207)
-//   bp_exact_kernel<WR, true>   <- _sumproduct_exact_kernel (:260)
-// fixed iteration count only, as there. The plain PyTorch versions of the
-// same functions are in ops/cuda_bp.py and round in the same order.
+//   bp_exact_kernel<WR, false, R, T>  <- _minsum_exact_kernel     (:207)
+//   bp_exact_kernel<WR, true, R, T>   <- _sumproduct_exact_kernel (:260)
+// fixed iteration count only, as there; T is the instance (0: the table
+// route, 8 rows of threads; 1: the min-sum's register tier, below). The
+// plain PyTorch versions of the same functions are in ops/cuda_bp.py and
+// round in the same order.
 //
 // What "exact" means. The contract of mode="exact" is the f32 path's hard
 // decisions (ops/decode.py, the counterpart of the JAX package's jnp
@@ -47,22 +49,50 @@
 //   Pallas exact kernels take. The slot -> variable table is read from
 //   global memory once, when the messages start.
 //
-// What bounds it: the sum-product does one tanhf, one IEEE division and one
-// logf per real edge and iteration (19, 17 and 28 SASS instructions, 3 of
-// them MUFU; tools/issue_model.py); min-sum only compares. Global memory
-// sees rx once and the int8 decisions once. Built with --fmad=false and
-// without fast math, so tanhf, logf and '/' are the IEEE-accurate libm
-// versions that torch calls, bit for bit. On an NVIDIA H100 80GB HBM3 at
-// 700 W, block_32_64 131,072 frames x 20 iterations (tools/exact_probe.py):
-// the check step's arithmetic takes 0.83 ms of the kernel's 1.58, 1.10x the
-// issue time of its SASS at 1980 MHz (0.75 ms; 0.84 for the three calls as
-// standalone functions): the check step is bound by instruction issue in
-// libm, which the contract fixes. So the design works around the calls:
-// each check's real width replaces the slot table in shared memory (one
-// load a check, where the table cost two a slot), and a check's pads never
-// reach tanhf or logf; 1.65 -> 1.58 ms.
-// The rest is the variable step, tables and barriers (0.60 ms) and the check
-// step's loads and stores (0.15 ms).
+// What bounds it. Global memory sees rx once and the int8 decisions once;
+// the rest is on chip, so issue and shared-memory latency bound both
+// kernels. Every time below is block_32_64 131,072 frames x 20
+// iterations on an NVIDIA H100 80GB HBM3 at 700 W (tools/exact_probe.py,
+// each variant against the shipped kernel in one run).
+//   sum-product  one tanhf, one IEEE division and one logf per real edge
+//                and iteration (19, 17 and 28 SASS instructions, 3 of them
+//                MUFU; tools/issue_model.py). Built with --fmad=false and
+//                without fast math, so they are the IEEE-accurate libm
+//                versions that torch calls, bit for bit. The check step's
+//                arithmetic is about 0.83 ms of the kernel's 1.6, near the
+//                issue time of its SASS: bound by libm, which the contract
+//                fixes. So the design works around the calls: each check's
+//                real width replaces the slot table in shared memory, and
+//                a check's pads never reach tanhf or logf (1.65 -> 1.58
+//                ms). The register tier below lost 1-3% here (its check
+//                step is libm's, not the loop), so the sum-product keeps
+//                the table route.
+//   min-sum      only compares. The parent's check step took three passes
+//                over a row (min1, the first argmin, min2): 0.53 ms of its
+//                1.16. Lever 2, one pass (check_minsum), which keeps every
+//                rule of the three: 1.16 -> 0.945 ms on the table route.
+//                Lever 1, the register tier: codes of at most 32 checks and
+//                64 variables keep each thread's rows in registers and the
+//                compiler holds every message address for the decode, so
+//                the loop is loads, compares and stores: 0.945 -> 0.832 ms
+//                at 64 registers and 4 blocks of 8 warps an SM (8 B of
+//                spill; ptxas left free took 107 registers, 2 blocks,
+//                0.865 ms). What is left: the variable step and barriers
+//                0.37 ms, the check step's loads and stores 0.21, its
+//                compares 0.25.
+// Measured and not shipped (tools/exact_probe.py): the same tier with its
+// addresses recomputed each iteration (an opaque copy; 0.886 ms); 16 rows
+// of threads (0.888); 5 blocks an SM (0.895); a second tier for
+// sim_50_100's 7 checks and 13 variables a thread (1.544 ms there against
+// 1.485 on tables); the slot table and widths in the constant bank, a
+// __grid_constant__ kernel parameter read by broadcast (0.938 and 1.473
+// ms against 0.945 and 1.485 on tables: under 1%, for a host copy of the
+// tables each launch).
+// Tensor cores do not apply: no product is left, the TPU's one-hot matmuls
+// became 1-3 term f32 sums through the tables, and the check step is
+// compare and select (min-sum) or libm (sum-product). TMA and asynchronous
+// copies do not: rx is read once, 8 KB a block. Clusters do not: blocks
+// share nothing.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -71,8 +101,7 @@
 namespace {
 
 constexpr int kFrames = 32;              // frames per block, threadIdx.x
-constexpr int kRows = 8;                 // threadIdx.y
-constexpr int kThreads = kFrames * kRows;
+constexpr int kRows = 8;                 // threadIdx.y of the table route
 constexpr int kRStride = kFrames + 1;    // row stride of r and vh
 constexpr int kWcMax = 4;                // largest column weight taken
 constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
@@ -125,11 +154,22 @@ __device__ __forceinline__ void check_sumproduct(float* msg, int d, int m,
 }
 
 // Min-sum check step, in place: Lq -> Lr. Its d real slots come first.
+// One pass over the row gives the sign product, min1, the first argmin and
+// min2 (the minimum with the argmin masked), as the three passes of the
+// plain version (torch.amin, argmin, amin) do: a slot takes the argmin when
+// it is below min1, or is the first NaN (NaN acts as below every number, and
+// a later NaN never displaces the first); min2 then takes the old min1,
+// else the slot. So ties keep the first slot, min2 = min1 on a tie, a NaN
+// row has min1 = NaN at its first NaN and min2 the NaN-propagating minimum
+// of the rest, and the pads' FLT_MAX takes part as in the plain version
+// (it is min1 only in a row of +inf). min2 starts at FLT_MAX, the masked
+// argmin's value.
 template <int WR>
 __device__ __forceinline__ void check_minsum(float* msg, int d, int m,
                                              int f) {
   float beta[WR], alpha[WR];
-  float P = 1.f, min1 = FLT_MAX;
+  float P = 1.f, min1 = 0.f, min2 = FLT_MAX;
+  int arg = 0;
 #pragma unroll
   for (int w = 0; w < WR; ++w) {
     const int e = m * WR + w;
@@ -138,19 +178,16 @@ __device__ __forceinline__ void check_minsum(float* msg, int d, int m,
     alpha[w] = (float)(t > 0.f) - (float)(t < 0.f);
     beta[w] = real ? fabsf(t) : FLT_MAX;
     P = P * (real ? alpha[w] : 1.f);
-    min1 = w == 0 ? beta[0] : nan_min(min1, beta[w]);
-  }
-  // the first argmin (the first NaN when the minimum is NaN)
-  const bool min_nan = min1 != min1;
-  int arg = WR;
-#pragma unroll
-  for (int w = WR - 1; w >= 0; --w)
-    if (min_nan ? beta[w] != beta[w] : beta[w] == min1) arg = w;
-  float min2 = FLT_MAX;
-#pragma unroll
-  for (int w = 0; w < WR; ++w) {
-    const float b = w == arg ? FLT_MAX : beta[w];
-    min2 = w == 0 ? b : nan_min(min2, b);
+    const float b = beta[w];
+    if (w == 0) {
+      min1 = b;
+    } else if (b < min1 || (b != b && min1 == min1)) {
+      min2 = nan_min(min2, min1);
+      min1 = b;
+      arg = w;
+    } else {
+      min2 = nan_min(min2, b);
+    }
   }
 #pragma unroll
   for (int w = 0; w < WR; ++w) {
@@ -233,12 +270,108 @@ __device__ __forceinline__ void var_step(float* msg, const float* r,
   }
 }
 
-template <int WR, bool SP>
-__global__ void __launch_bounds__(kThreads)
+// The min-sum's variable step for variable j of frame f, as var_step,
+// its -rx rj and slots s (-1 on a pad) given (the register tier).
+__device__ __forceinline__ void var_step_minsum(float* msg, int8_t* vh,
+                                                float rj,
+                                                const int (&s)[kWcMax],
+                                                int j, int Wc, int f,
+                                                bool last) {
+  float x[kWcMax];
+  float tot = 0.f;
+#pragma unroll
+  for (int v = 0; v < kWcMax; ++v) {
+    x[v] = s[v] >= 0 ? msg[s[v] * kFrames + f] : 0.f;
+    if (v < Wc) tot = v == 0 ? x[0] : tot + x[v];
+  }
+  if (last) {
+    vh[j * kRStride + f] = rj + tot < 0.f;
+    return;
+  }
+  const float LQ = rj + tot;
+#pragma unroll
+  for (int v = 0; v < kWcMax; ++v)
+    if (s[v] >= 0) msg[s[v] * kFrames + f] = LQ - x[v];
+}
+
+// Lever 1, the thread's rows in registers. A thread takes checks y, y + 8,
+// ... and variables y, y + 8, ... in every iteration, so their widths,
+// slots and -rx are loaded once, before the loop, where the table route
+// reads them from shared memory in every iteration, each read heading a
+// dependent chain (table -> address -> message). The counts are
+// compile-time, so the rows' loops unroll, and the compiler keeps every
+// row's message addresses in registers for the whole decode: the loop is
+// loads, compares and stores. That costs registers (4 blocks of 8 warps an
+// SM at block_32_64, where the table route fits 6) and pays there; at
+// sim_50_100's 7 checks and 13 variables a thread it did not
+// (tools/exact_probe.py), so the tier holds codes of at most 32 checks and
+// 64 variables, and any other code takes the table route.
+struct Shape {
+  int M, N;
+};
+constexpr Shape kShapes[] = {{32, 64}};   // block_32_64
+constexpr int kTiers = sizeof(kShapes) / sizeof(kShapes[0]);
+constexpr int kRegRows = 8;        // rows of threads of the register tier
+constexpr int kRegMinBlocks = 4;   // ptxas fits 64 registers (8 B of spill)
+                                   // for 4 blocks an SM; left free it took
+                                   // 107 and 2 blocks, 1.04x the time
+constexpr int kPadSlot = 0xffff;   // a pad's 16-bit slot
+
+// The registers a thread holds for tier T with R rows: 4 bits of width a
+// check, two 16-bit slots a register, and -rx of each variable.
+template <int R, int T>
+struct ThreadRows {
+  static constexpr int KC = (kShapes[T - 1].M + R - 1) / R;
+  static constexpr int KV = (kShapes[T - 1].N + R - 1) / R;
+  static_assert(KC * 4 <= 32, "a check's width takes 4 bits of one int");
+  unsigned width;
+  unsigned slots[KV][kWcMax / 2];
+  float rj[KV];
+
+  __device__ __forceinline__ void load(const int* deg, const int* vc,
+                                       const float* r, int M, int N, int Wc,
+                                       int y, int f) {
+    width = 0;
+#pragma unroll
+    for (int i = 0; i < KC; ++i) {
+      const int m = y + i * R;
+      width |= (unsigned)(m < M ? deg[m] : 0) << (4 * i);
+    }
+#pragma unroll
+    for (int i = 0; i < KV; ++i) {
+      const int j = y + i * R;
+      rj[i] = j < N ? r[j * kRStride + f] : 0.f;
+#pragma unroll
+      for (int h = 0; h < kWcMax / 2; ++h) {
+        unsigned w = 0;
+#pragma unroll
+        for (int k = 2 * h; k < 2 * h + 2; ++k) {
+          const int s = j < N && k < Wc ? vc[j * Wc + k] : -1;
+          w |= (unsigned)(s >= 0 ? s : kPadSlot) << (16 * (k & 1));
+        }
+        slots[i][h] = w;
+      }
+    }
+  }
+  // variable y + i*R's slots, -1 on a pad
+  __device__ __forceinline__ void var_slots(int i, int (&s)[kWcMax]) const {
+#pragma unroll
+    for (int k = 0; k < kWcMax; ++k) {
+      const int v = (slots[i][k / 2] >> (16 * (k & 1))) & 0xffff;
+      s[k] = v == kPadSlot ? -1 : v;
+    }
+  }
+};
+
+// T = 0: the table route, R = kRows; T >= 1 (the min-sum only): tier T of
+// kShapes, the rows in registers, R = kRegRows.
+template <int WR, bool SP, int R, int T>
+__global__ void __launch_bounds__(kFrames * R, T > 0 ? kRegMinBlocks : 0)
 bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
                 const int* __restrict__ chk_var,
                 const int* __restrict__ var_cslots, int M, int N, int Wc,
                 int iterations) {
+  constexpr int kThreads = kFrames * R;
   extern __shared__ __align__(16) unsigned char smem[];
   const int E = WR * M;
   float* msg = reinterpret_cast<float*>(smem);
@@ -264,28 +397,53 @@ bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     r[j * kRStride + ff] = g < B ? -rx[g * N + j] : 0.f;
   }
   __syncthreads();
-  for (int e = y; e < E; e += kRows) {
+  for (int e = y; e < E; e += R) {
     const int j = chk_var[e];
     if (j >= 0) msg[e * kFrames + f] = r[j * kRStride + f];
   }
-  for (int j = y; j < N; j += kRows) {   // decision of r (iterations = 0)
+  for (int j = y; j < N; j += R) {   // decision of r (iterations = 0)
     const float rj = r[j * kRStride + f];
     vh[j * kRStride + f] = SP ? rj <= 0.f : rj < 0.f;
   }
   __syncthreads();
 
-  for (int it = 0; it < iterations; ++it) {
-    for (int m = y; m < M; m += kRows) {
-      if constexpr (SP)
-        check_sumproduct<WR>(msg, deg[m], m, f);
-      else
-        check_minsum<WR>(msg, deg[m], m, f);
+  if constexpr (T == 0) {
+    for (int it = 0; it < iterations; ++it) {
+      for (int m = y; m < M; m += R) {
+        if constexpr (SP)
+          check_sumproduct<WR>(msg, deg[m], m, f);
+        else
+          check_minsum<WR>(msg, deg[m], m, f);
+      }
+      __syncthreads();
+      const bool last = it + 1 == iterations;
+      for (int j = y; j < N; j += R)
+        var_step<SP>(msg, r, vc, vh, j, Wc, f, last);
+      __syncthreads();
     }
-    __syncthreads();
-    const bool last = it + 1 == iterations;
-    for (int j = y; j < N; j += kRows)
-      var_step<SP>(msg, r, vc, vh, j, Wc, f, last);
-    __syncthreads();
+  } else {
+    static_assert(!SP, "the register tier is the min-sum's");
+    using Rows = ThreadRows<R, T>;
+    Rows rows;
+    rows.load(deg, vc, r, M, N, Wc, y, f);
+    for (int it = 0; it < iterations; ++it) {
+#pragma unroll
+      for (int i = 0; i < Rows::KC; ++i) {
+        const int m = y + i * R;
+        if (m < M) check_minsum<WR>(msg, (rows.width >> (4 * i)) & 15, m, f);
+      }
+      __syncthreads();
+      const bool last = it + 1 == iterations;
+#pragma unroll
+      for (int i = 0; i < Rows::KV; ++i) {
+        const int j = y + i * R;
+        if (j >= N) continue;
+        int s[kWcMax];
+        rows.var_slots(i, s);
+        var_step_minsum(msg, vh, rows.rj[i], s, j, Wc, f, last);
+      }
+      __syncthreads();
+    }
   }
   for (int i = tid; i < kFrames * N; i += kThreads) {   // coalesced out rows
     const int ff = i / N, j = i - ff * N;
@@ -294,32 +452,59 @@ bp_exact_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
 }
 
-template <int WR, bool SP>
+// The tier a code of this shape takes: for the min-sum, the first of
+// kShapes that holds its M and N; 0, the table route, otherwise and for
+// the sum-product.
+inline int tier(bool sp, int M, int N) {
+  if (sp) return 0;
+  for (int t = 0; t < kTiers; ++t)
+    if (M <= kShapes[t].M && N <= kShapes[t].N) return t + 1;
+  return 0;
+}
+
+template <int WR, bool SP, int T>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* chk_var,
                    const int* var_cslots, int M, int N, int Wc,
                    int iterations, cudaStream_t stream) {
+  constexpr int R = T ? kRegRows : kRows;
   const int smem = smem_bytes(M, N, WR, Wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bp_exact_kernel<WR, SP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        bp_exact_kernel<WR, SP, R, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((B + kFrames - 1) / kFrames));
-  const dim3 block(kFrames, kRows);
-  bp_exact_kernel<WR, SP><<<grid, block, smem, stream>>>(
+  const dim3 block(kFrames, R);
+  bp_exact_kernel<WR, SP, R, T><<<grid, block, smem, stream>>>(
       rx, out, B, chk_var, var_cslots, M, N, Wc, iterations);
   return cudaGetLastError();
 }
+
+// The kernel of row weight WR and tier t, for querying.
+template <int WR, bool SP>
+const void* kernel_of(int t) {
+  if constexpr (!SP)
+    if (t == 1) return (const void*)bp_exact_kernel<WR, SP, kRegRows, 1>;
+  return t == 0 ? (const void*)bp_exact_kernel<WR, SP, kRows, 0> : nullptr;
+}
+static_assert(kTiers == 1, "kernel_of and dispatch instantiate tiers 0-1");
 
 template <bool SP>
 cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
                      const int* chk_var, const int* var_cslots, int M, int N,
                      int Wc, int iterations, cudaStream_t stream) {
+  const int t = tier(SP, M, N);
+#define BP_TIER(W, T)                                                         \
+  case T:                                                                     \
+    return launch<W, SP, T>(rx, out, B, chk_var, var_cslots, M, N, Wc,        \
+                            iterations, stream);
 #define BP_CASE(W)                                                            \
   case W:                                                                     \
-    return launch<W, SP>(rx, out, B, chk_var, var_cslots, M, N, Wc,           \
-                         iterations, stream);
+    if constexpr (!SP) {                                                      \
+      switch (t) { BP_TIER(W, 1) default: break; }                            \
+    }                                                                         \
+    switch (t) { BP_TIER(W, 0) default: return cudaErrorInvalidValue; }
   switch (Wr) {
     BP_CASE(2) BP_CASE(3) BP_CASE(4) BP_CASE(5) BP_CASE(6) BP_CASE(7)
     BP_CASE(8)
@@ -327,14 +512,15 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
       return cudaErrorInvalidValue;
   }
 #undef BP_CASE
+#undef BP_TIER
 }
 
 template <bool SP>
-int occupancy(int Wr, int smem, int* blocks) {
+int occupancy(int Wr, int t, int smem, int* blocks) {
   const void* fn = nullptr;
 #define BP_FN(W)                                                              \
   case W:                                                                     \
-    fn = (const void*)bp_exact_kernel<W, SP>;                                 \
+    fn = kernel_of<W, SP>(t);                                                 \
     break;
   switch (Wr) {
     BP_FN(2) BP_FN(3) BP_FN(4) BP_FN(5) BP_FN(6) BP_FN(7) BP_FN(8)
@@ -342,13 +528,14 @@ int occupancy(int Wr, int smem, int* blocks) {
       return cudaErrorInvalidValue;
   }
 #undef BP_FN
+  if (fn == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fn, kFrames * (t ? kRegRows : kRows), smem);
   // a query's error must not surface as the next launch's cudaGetLastError
   if (err != cudaSuccess) cudaGetLastError();
   return err;
@@ -358,14 +545,20 @@ int occupancy(int Wr, int smem, int* blocks) {
 
 extern "C" {
 
-// Blocks of the exact min-sum (sumproduct = 0) or sum-product (1) kernel
-// that fit one SM at `smem` bytes of dynamic shared memory, into *blocks,
-// and the threads of one block, into *threads.
-int bp_exact_occupancy(int sumproduct, int Wr, int smem, int* blocks,
+// The instance a code of this shape takes: 0, the table route, or the
+// tier t >= 1 of kCounts whose rows stay in registers.
+int bp_exact_tier(int sumproduct, int M, int N) {
+  return tier(sumproduct != 0, M, N);
+}
+
+// Blocks of the exact min-sum (sumproduct = 0) or sum-product (1) kernel of
+// tier t that fit one SM at `smem` bytes of dynamic shared memory, into
+// *blocks, and the threads of one block, into *threads.
+int bp_exact_occupancy(int sumproduct, int Wr, int t, int smem, int* blocks,
                        int* threads) {
-  *threads = kThreads;
-  return sumproduct ? occupancy<true>(Wr, smem, blocks)
-                    : occupancy<false>(Wr, smem, blocks);
+  *threads = kFrames * (t ? kRegRows : kRows);
+  return sumproduct ? occupancy<true>(Wr, t, smem, blocks)
+                    : occupancy<false>(Wr, t, smem, blocks);
 }
 
 // Shared memory one block needs for this code shape, in bytes.

@@ -2,7 +2,7 @@
 //
 // Replaces, in gr_ldpc_ece535a_tpu/ops/pallas_bp.py:
 //   bp_kernel<WR, true, 32, 8>    <- _sumproduct_fast_kernel  (tanh-rule SPA, phi domain)
-//   bp_kernel<WR, false, 32, 8>   <- _minsum_fast_kernel      (min-sum, sign(0) zeroes the row)
+//   bp_minsum_pairs<WR>           <- _minsum_fast_kernel      (min-sum, sign(0) zeroes the row)
 //   bp_kernel<WR, true, 16, 64>   <- _sumproduct_split_kernel (the same SPA, large codes)
 //   bp_kernel<WR, false, 16, 64>  <- _minsum_split_kernel     (the same min-sum, large codes)
 // each in its fixed-iteration and early-exit form. The plain PyTorch versions
@@ -24,7 +24,8 @@
 // only the int8 decisions are written back.
 //
 // Two tiles. The tile kernel (F = 32, R = 8) takes 36.9 KB for block_32_64
-// (E = 192, N = 64) and 56 KB for sim_50_100. The large-code kernel
+// (E = 192, N = 64) and 56 KB for sim_50_100; the tile min-sum keeps its
+// layout with 16 lanes of two frames and 16 rows (below). The large-code kernel
 // (F = 16) halves the frames so that codes up to E ~ 2000 fit one
 // block's 227 KB: 154 KB for gen_256_512 (E = 1536), 192 KB for gen_320_640
 // (E = 1920). It runs one block per SM, of 64 rows (1,024 threads, 32
@@ -51,26 +52,50 @@
 // on the large codes at 1-2 dB that the same algorithm in IEEE f32 decides
 // as the kernel does (ops/cuda_bp.py).
 // Min-sum does only compares; its load-compute-store skeleton bounds it,
-// and the latency of its shared-memory loads. Every operand stays on chip;
-// at block_32_64's 48 registers a thread, 5 tile blocks of 8 warps fit an
-// SM. The large-code block's shared memory holds it to one block an SM,
-// where 16 warps hid too little latency: with 32 rows the large SPA took
-// 1.27x and the large min-sum 1.13x as long as with 64 (tools/occupancy.py).
+// and the latency of its shared-memory loads: a table read heads each
+// chain (table -> address -> message), and a warp reads one slot table
+// entry for 32 frames. The tile min-sum therefore takes two frames a
+// thread (bp_minsum_pairs): each message a float2, so one table read,
+// address and loop step serve two frames; a warp (two rows of 16 lanes)
+// still moves 256 bytes a slot in two wavefronts without a conflict.
+// block_32_64 131,072 x 20 at 4 dB on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/kernel_times.py, parent and change in one run): 0.920 -> 0.850 ms
+// fixed, 0.677 -> 0.596 early exit, and the sim_50_100 sweep step's decode
+// 0.491 -> 0.432 ms; 64 registers, 4 blocks of 8 warps an SM. Measured on
+// the same card and not shipped (tools/tile_probe.py): the thread's rows
+// (slots, -rx) in registers for the whole decode, one frame a thread: its
+// addresses held there took 126 registers and 2 blocks (1.48 ms), made
+// opaque each iteration 1.04x the table route's time at block_32_64 and
+// 1.14x at sim_50_100; with two frames it won 0.8% fixed and 1.7% early
+// exit at block_32_64 and lost 4% at sim_50_100, not worth its code. The
+// slot tables in the constant bank (a __grid_constant__ parameter, read by
+// broadcast): 1.05-1.24x. 8 rows of two-frame threads: 0.847 ms at
+// block_32_64 but 1.19-1.69x on larger codes; ptxas held to 5 or 6 blocks
+// an SM (spilling): 1.03-1.13x. Tensor cores do not apply (no
+// product is left: the TPU's one-hot matmuls became 1-3 term f32 sums
+// through the tables), nor TMA (rx is read once, 8 KB a block), nor
+// clusters (blocks share nothing).
+// Every operand stays on chip; the tile SPA's 48 registers a thread fit 5
+// blocks of 8 warps an SM. The large-code block's shared memory holds it
+// to one block an SM, where 16 warps hid too little latency: with 32 rows
+// the large SPA took 1.27x and the large min-sum 1.13x as long as with 64
+// (tools/occupancy.py).
 // The early-exit form takes the syndrome of each iteration's decisions; the
 // large-code kernels take it in the next check step, beside the loads that
 // step makes anyway, so it costs no barrier of its own (see the kernel).
 // On an NVIDIA H100 80GB HBM3 at 700 W: block_32_64 131,072 frames x 20
-// iterations 1.357 ms (sum-product; 2.213 with libm's phi) and 0.909 ms
-// (min-sum); gen_256_512 16,384 x 20 1.62 ms (sum-product; 2.973 with
-// libm's phi and 32 rows) and 1.06 ms (min-sum; 1.21 with 32 rows), and a
-// sweep step's decode at 1-2 dB (131,072 frames, early exit) 14.0 ms
-// (sum-product; 14.6 with the syndrome's own pass) and 9.5 ms (min-sum;
-// 10.8 with 32 rows and the syndrome's own pass). Two costs of this
-// design: a code that fits the tile but is sent to the large-code kernels
-// (impl="split"; no "auto" route does so) gets one block of 32 warps an SM
-// where two of 16 fitted, 2.35 ms against 1.65 on block_32_64 (SPA; min-sum
-// 1.51 against 1.16); and ptxas holds the tile SPA to 48 registers with a
-// spill, 4 B at WR = 6 and 20 B at WR = 7, where the libm form spilled none.
+// iterations 1.367 ms (sum-product; 2.213 with libm's phi) and 0.850 ms
+// (min-sum; 0.920 one frame a thread); gen_256_512 16,384 x 20 1.61 ms
+// (sum-product; 2.973 with libm's phi and 32 rows) and 1.05 ms (min-sum;
+// 1.21 with 32 rows), and a sweep step's decode at 1-2 dB (131,072 frames,
+// early exit) 14.0 ms (sum-product; 14.6 with the syndrome's own pass) and
+// 9.5 ms (min-sum; 10.8 with 32 rows and the syndrome's own pass). Two
+// costs of this design: a code that fits the tile but is sent to the
+// large-code kernels (impl="split"; no "auto" route does so) gets one block
+// of 32 warps an SM where two of 16 fitted, 2.35 ms against 1.65 on
+// block_32_64 (SPA; min-sum 1.56 against 0.86); and ptxas holds the tile
+// SPA to 48 registers with a spill, 4 B at WR = 6 and 20 B at WR = 7, where
+// the libm form spilled none.
 //
 // Rounding order, shared with the plain versions: the check-row phi sum is
 // the pairwise tree of pallas_bp._tree (Wr = 6: ((x0+x3)+(x1+x4))+(x2+x5));
@@ -84,6 +109,7 @@
 namespace {
 
 constexpr int kTileFrames = 32, kTileRows = 8;     // tile kernel
+constexpr int kPairRows = 16;    // tile min-sum: rows of two-frame threads
 // large-code kernel: 16 frames and 64 rows of threads (32 warps), since its
 // one block an SM hid too little latency with 16 warps
 constexpr int kLargeFrames = 16, kLargeRows = 64;
@@ -238,17 +264,15 @@ __device__ __forceinline__ CheckRow<WR> load_check(const float* msg,
   return row;
 }
 
-// Min-sum check step on a loaded row, in place: Lq -> Lr.
+// Min-sum check step on a loaded row: Lq -> Lr, each result k handed to
+// out(k, Lr[k]) as it is formed.
 //   Lr = sign * (prod_alpha * min over the other slots of |Lq|), where
 //   prod_alpha is the row sign product, or 0 when the row holds a zero.
-// With syn, returns the row's parity over the decisions vh, else 0.
-template <int WR, int F>
-__device__ __forceinline__ int check_minsum(float* msg,
-                                            const CheckRow<WR>& row, int m,
-                                            int M, int f, bool syn,
-                                            float norm_offset,
-                                            float norm_scale, int use_offset,
-                                            int use_scale) {
+template <int WR, class Out>
+__device__ __forceinline__ void minsum_row(const CheckRow<WR>& row,
+                                           float norm_offset, float norm_scale,
+                                           int use_offset, int use_scale,
+                                           Out out) {
   float beta[WR], sg[WR], pre[WR];
   float P = 1.f;
 #pragma unroll
@@ -277,8 +301,23 @@ __device__ __forceinline__ int check_minsum(float* msg,
       me = me < 0.f ? 0.f : me;
     }
     if (use_scale) me = me * norm_scale;
-    if (row.j[k] >= 0) msg[(k * M + m) * F + f] = sg[k] * (prod_alpha * me);
+    out(k, sg[k] * (prod_alpha * me));
   }
+}
+
+// Min-sum check step on a loaded row, in place: Lq -> Lr (minsum_row).
+// With syn, returns the row's parity over the decisions vh, else 0.
+template <int WR, int F>
+__device__ __forceinline__ int check_minsum(float* msg,
+                                            const CheckRow<WR>& row, int m,
+                                            int M, int f, bool syn,
+                                            float norm_offset,
+                                            float norm_scale, int use_offset,
+                                            int use_scale) {
+  minsum_row<WR>(row, norm_offset, norm_scale, use_offset, use_scale,
+                 [&](int k, float v) {
+                   if (row.j[k] >= 0) msg[(k * M + m) * F + f] = v;
+                 });
   return syn ? row.par : 0;
 }
 
@@ -491,23 +530,240 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   }
 }
 
+// The tile min-sum, two frames a thread: a block of 32 frames has 16 lanes
+// of two frames (f2 = 2 * lane, f2 + 1) and kPairRows rows of threads. A
+// message moves as one float2, so a warp (two rows of 16 lanes) reads and
+// writes 256 contiguous bytes of one slot pair in the check step, or two
+// rows' 128 bytes in the variable step: two wavefronts, no conflict, as two
+// one-frame warps would take. Each table read, address, loop step and
+// barrier is paid once for two frames. The arithmetic is check_minsum's
+// and var_step's, frame by frame; a frame that is done (early exit) or past
+// B keeps its messages and decision, its half of each float2 written back
+// unchanged.
+template <int WR>
+__global__ void __launch_bounds__(kTileFrames / 2 * kPairRows)
+bp_minsum_pairs(const float* __restrict__ rx, int8_t* __restrict__ out,
+                int B, const int* __restrict__ slot_var,
+                const int* __restrict__ var_slots, int M, int N, int Wc,
+                int iterations, int early_exit, float norm_offset,
+                float norm_scale, int use_offset, int use_scale) {
+  constexpr int F = kTileFrames, R = kPairRows, L = F / 2;
+  constexpr int kThreads = L * R, kRStride = F + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int E = WR * M;
+  float* msg = reinterpret_cast<float*>(smem);
+  float* r = msg + E * F;
+  int* sv = reinterpret_cast<int*>(r + N * kRStride);
+  int* vs = sv + E;
+  int* flags = vs + N * Wc;     // 2F per-frame flags of the early-exit form
+  int8_t* vh = reinterpret_cast<int8_t*>(flags + 2 * F);
+
+  const int x = threadIdx.x, y = threadIdx.y, tid = y * L + x;
+  const int f2 = 2 * x;         // this thread's frames f2 and f2 + 1
+  const long long f0 = (long long)blockIdx.x * F;
+
+  for (int i = tid; i < E; i += kThreads) sv[i] = slot_var[i];
+  for (int i = tid; i < N * Wc; i += kThreads) vs[i] = var_slots[i];
+  for (int i = tid; i < F * N; i += kThreads) {   // coalesced rx rows
+    const int ff = i / N, j = i - ff * N;
+    const long long g = f0 + ff;
+    r[j * kRStride + ff] = g < B ? -rx[g * N + j] : 0.f;
+  }
+  // unsat and done flags; frames past B count as done from the start
+  if (y == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      flags[f2 + h] = 0;
+      flags[F + f2 + h] = f0 + f2 + h >= B;
+    }
+  }
+  __syncthreads();
+  for (int e = y; e < E; e += R) {
+    const int j = sv[e];
+    if (j >= 0)
+      *reinterpret_cast<float2*>(&msg[e * F + f2]) =
+          make_float2(r[j * kRStride + f2], r[j * kRStride + f2 + 1]);
+  }
+  for (int j = y; j < N; j += R) {   // decision of L = r (iterations = 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      vh[j * kRStride + f2 + h] = r[j * kRStride + f2 + h] < 0.f;
+  }
+  __syncthreads();
+
+  // live[h]: frame f2 + h decodes; a frame that does not keeps its values
+  auto check = [&](const bool (&live)[2], int m) {
+    CheckRow<WR> a, b;
+    a.par = b.par = 0;
+#pragma unroll
+    for (int k = 0; k < WR; ++k) {
+      const bool real = sv[k * M + m] >= 0;
+      a.j[k] = b.j[k] = real ? 0 : -1;
+      const float2 t =
+          real ? *reinterpret_cast<const float2*>(&msg[(k * M + m) * F + f2])
+               : make_float2(kPadBig, kPadBig);
+      a.t[k] = t.x;
+      b.t[k] = t.y;
+    }
+    float va[WR], vb[WR];
+    minsum_row<WR>(a, norm_offset, norm_scale, use_offset, use_scale,
+                   [&](int k, float v) { va[k] = v; });
+    minsum_row<WR>(b, norm_offset, norm_scale, use_offset, use_scale,
+                   [&](int k, float v) { vb[k] = v; });
+#pragma unroll
+    for (int k = 0; k < WR; ++k)
+      if (a.j[k] >= 0)
+        *reinterpret_cast<float2*>(&msg[(k * M + m) * F + f2]) =
+            make_float2(live[0] ? va[k] : a.t[k], live[1] ? vb[k] : b.t[k]);
+  };
+  auto checks = [&](const bool (&live)[2]) {
+    for (int m = y; m < M; m += R) check(live, m);
+  };
+  // variable j: the min-sum's decision r + tot < 0 and next messages
+  // r + (sum over the other edges), as var_step, for both frames at once
+  auto var = [&](const bool (&live)[2], bool write_msgs, bool write_vh,
+                 int j) {
+    float ea[kWcMax], eb[kWcMax];
+    int s[kWcMax];
+#pragma unroll
+    for (int k = 0; k < kWcMax; ++k) {
+      s[k] = k < Wc ? vs[j * Wc + k] : -1;
+      const float2 e =
+          s[k] >= 0 ? *reinterpret_cast<const float2*>(&msg[s[k] * F + f2])
+                    : make_float2(0.f, 0.f);
+      ea[k] = e.x;
+      eb[k] = e.y;
+    }
+    const float ra = r[j * kRStride + f2], rb = r[j * kRStride + f2 + 1];
+    if (write_vh) {
+      float ta = 0.f, tb = 0.f;
+#pragma unroll
+      for (int k = 0; k < kWcMax; ++k)
+        if (k < Wc) {
+          ta = ta + ea[k];
+          tb = tb + eb[k];
+        }
+      if (live[0]) vh[j * kRStride + f2] = ra + ta < 0.f;
+      if (live[1]) vh[j * kRStride + f2 + 1] = rb + tb < 0.f;
+    }
+    if (write_msgs) {
+#pragma unroll
+      for (int k = 0; k < kWcMax; ++k) {
+        if (s[k] < 0) continue;
+        float aa = 0.f, ab = 0.f;
+#pragma unroll
+        for (int q = 0; q < kWcMax; ++q)
+          if (q != k && q < Wc) {
+            aa = aa + ea[q];
+            ab = ab + eb[q];
+          }
+        *reinterpret_cast<float2*>(&msg[s[k] * F + f2]) = make_float2(
+            live[0] ? ra + aa : ea[k], live[1] ? rb + ab : eb[k]);
+      }
+    }
+  };
+  auto vars = [&](const bool (&live)[2], bool write_msgs, bool write_vh) {
+    for (int j = y; j < N; j += R) var(live, write_msgs, write_vh, j);
+  };
+
+  if (!early_exit) {
+    // iterations-1 full steps, then a trailing check step and the decision
+    const bool live[2] = {f0 + f2 < B, f0 + f2 + 1 < B};
+    for (int it = 0; it + 1 < iterations; ++it) {
+      checks(live);
+      __syncthreads();
+      vars(live, true, false);
+      __syncthreads();
+    }
+    if (iterations > 0) {
+      checks(live);
+    } else {
+      for (int e = y; e < E; e += R)
+        *reinterpret_cast<float2*>(&msg[e * F + f2]) = make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+    vars(live, false, true);
+  } else {
+    // each iteration: check step, tentative decision, syndrome over all M
+    // checks; a frame that satisfies H keeps that decision and stops. The
+    // block stops when all its frames have.
+    int* unsat = flags;
+    int* done = flags + F;
+    for (int it = 0; it < iterations; ++it) {
+      if (__syncthreads_and(done[f2] && done[f2 + 1])) break;
+      const bool live[2] = {!done[f2], !done[f2 + 1]};
+      if (y == 0) unsat[f2] = unsat[f2 + 1] = 0;
+      checks(live);
+      __syncthreads();
+      vars(live, true, true);
+      __syncthreads();
+      for (int m = y; m < M; m += R) {
+        int pa = 0, pb = 0;
+#pragma unroll
+        for (int k = 0; k < WR; ++k) {
+          const int j = sv[k * M + m];
+          if (j >= 0) {
+            pa ^= vh[j * kRStride + f2];
+            pb ^= vh[j * kRStride + f2 + 1];
+          }
+        }
+        if (live[0] && pa) unsat[f2] = 1;
+        if (live[1] && pb) unsat[f2 + 1] = 1;
+      }
+      __syncthreads();
+      if (y == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (live[h] && !unsat[f2 + h]) done[f2 + h] = 1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < F * N; i += kThreads) {   // coalesced out rows
+    const int ff = i / N, j = i - ff * N;
+    const long long g = f0 + ff;
+    if (g < B) out[g * N + j] = vh[j * kRStride + ff];
+  }
+}
+
+// The kernel a launch of (WR, SP, F, R) takes, and its block: the tile
+// min-sum is bp_minsum_pairs, 16 lanes of two frames and kPairRows rows;
+// every other kernel bp_kernel, F lanes and R rows.
+template <int WR, bool SP, int F, int R>
+struct Kernel {
+  static constexpr bool kPairs = !SP && F == kTileFrames;
+  static const void* fn() {
+    if constexpr (kPairs)
+      return (const void*)bp_minsum_pairs<WR>;
+    else
+      return (const void*)bp_kernel<WR, SP, F, R>;
+  }
+  static dim3 block() {
+    return kPairs ? dim3(F / 2, kPairRows) : dim3(F, R);
+  }
+};
+
 template <int WR, bool SP, int F, int R>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
                    const int* var_slots, int M, int N, int Wc, int iterations,
                    int early_exit, float norm_offset, float norm_scale,
                    int use_offset, int use_scale, cudaStream_t stream) {
+  using K = Kernel<WR, SP, F, R>;
   const int smem = smem_bytes<F>(M, N, WR, Wc);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bp_kernel<WR, SP, F, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((B + F - 1) / F));
-  const dim3 block(F, R);
-  bp_kernel<WR, SP, F, R><<<grid, block, smem, stream>>>(
-      rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
-      norm_offset, norm_scale, use_offset, use_scale);
+  if constexpr (K::kPairs)
+    bp_minsum_pairs<WR><<<grid, K::block(), smem, stream>>>(
+        rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
+        norm_offset, norm_scale, use_offset, use_scale);
+  else
+    bp_kernel<WR, SP, F, R><<<grid, K::block(), smem, stream>>>(
+        rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
+        norm_offset, norm_scale, use_offset, use_scale);
   return cudaGetLastError();
 }
 
@@ -562,10 +818,13 @@ __global__ void phi_probe_kernel(const float* __restrict__ x,
 template <int F, int R>
 int occupancy(int sumproduct, int Wr, int smem, int* blocks, int* threads) {
   const void* fn = nullptr;
+  dim3 block;
 #define BP_FN(W)                                                              \
   case W:                                                                     \
-    fn = sumproduct ? (const void*)bp_kernel<W, true, F, R>                   \
-                    : (const void*)bp_kernel<W, false, F, R>;                 \
+    fn = sumproduct ? Kernel<W, true, F, R>::fn()                             \
+                    : Kernel<W, false, F, R>::fn();                           \
+    block = sumproduct ? Kernel<W, true, F, R>::block()                       \
+                       : Kernel<W, false, F, R>::block();                     \
     break;
   switch (Wr) {
     BP_FN(2) BP_FN(3) BP_FN(4) BP_FN(5) BP_FN(6) BP_FN(7) BP_FN(8)
@@ -573,7 +832,7 @@ int occupancy(int sumproduct, int Wr, int smem, int* blocks, int* threads) {
       return cudaErrorInvalidValue;
   }
 #undef BP_FN
-  *threads = F * R;
+  *threads = block.x * block.y;
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
-           "load_variant", "variant_path"]
+           "load_variant", "load_variants", "variant_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
@@ -104,16 +104,26 @@ def variant_path(name: str, text: str) -> Path:
     return BUILD_DIR / "variants" / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def load_variants(name: str, texts) -> list[ctypes.CDLL]:
+    """Libraries built as ``csrc/<name>.cu`` is, one from each of ``texts``,
+    variants of that source (for a tool that times them), compiled all at
+    once where not built before, typed as load_library's."""
+    jobs = {}
+    for text in texts:
+        lib = variant_path(name, text)
+        if not lib.exists() and lib not in jobs:
+            src = lib.with_name(lib.name.removeprefix("lib")).with_suffix(".cu")
+            src.parent.mkdir(parents=True, exist_ok=True)
+            src.write_text(text)
+            jobs[lib] = _compile(src, lib)
+    _finish(jobs)
+    return [_typed(ctypes.CDLL(str(variant_path(name, t))), name)
+            for t in texts]
+
+
 def load_variant(name: str, text: str) -> ctypes.CDLL:
-    """A library built as ``csrc/<name>.cu`` is, from ``text``, a variant of
-    that source (for a tool that times one), typed as load_library's."""
-    lib = variant_path(name, text)
-    if not lib.exists():
-        src = lib.with_name(lib.name.removeprefix("lib")).with_suffix(".cu")
-        src.parent.mkdir(parents=True, exist_ok=True)
-        src.write_text(text)
-        _finish({lib: _compile(src, lib)})
-    return _typed(ctypes.CDLL(str(lib)), name)
+    """load_variants of one text."""
+    return load_variants(name, [text])[0]
 
 
 def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
@@ -157,8 +167,9 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                    i,           # iterations
                    p],          # cudaStream_t
                "bp_exact_smem_bytes": [i] * 4,
-               # sumproduct, Wr, smem bytes, int* blocks, int* threads
-               "bp_exact_occupancy": [i, i, i, p, p],
+               # sumproduct, Wr, tier, smem bytes, int* blocks, int* threads
+               "bp_exact_occupancy": [i, i, i, i, p, p],
+               "bp_exact_tier": [i] * 3,  # sumproduct, M, N
                "bp_exact_error_string": [i]}
     for fn, args in fns.items():
         getattr(lib, fn).argtypes = args

@@ -81,7 +81,7 @@ __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
            "decode_minsum_exact_plain", "decode_sumproduct_exact_plain",
            "kernel_supported", "large_supported", "exact_supported",
            "supported", "smem_bytes", "large_smem_bytes", "exact_smem_bytes",
-           "route", "phi_probe", "log_tanh_half_mirror",
+           "route", "tier", "phi_probe", "log_tanh_half_mirror",
            "decode_sumproduct_phi", "occupancy",
            "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK"]
 
@@ -183,8 +183,36 @@ def _check_gate(code: LdpcCode, kind: str = "tile") -> None:
             f"Use make_decoder(backend='torch' or 'auto').")
 
 
+# Lever 1 of the exact kernels (csrc/bp_exact.cu kShapes): a code of at
+# most M checks and N variables keeps each thread's rows (slots, check
+# widths, -rx) in registers for the whole decode; any other code reads them
+# from the shared-memory tables in every iteration (the table route).
+EXACT_REG_SHAPES = ((32, 64),)         # kShapes: (M, N) of tier 1
+
+
+def tier(code: LdpcCode, sumproduct: bool) -> int:
+    """The instance of the exact kernel a code takes (bp_exact_tier): 0, the
+    table route, or for the min-sum the tier t >= 1 of EXACT_REG_SHAPES,
+    the first that holds the code's M and N."""
+    if sumproduct:
+        return 0
+    for i, (m, n) in enumerate(EXACT_REG_SHAPES):
+        if code.M <= m and code.N <= n:
+            return i + 1
+    return 0
+
+
 def route(code: LdpcCode, mode: str = "exact", impl: str = "auto") -> str:
-    """The kernel a call takes: "exact", "tile" or "large" (pallas_bp._dispatch)."""
+    """The kernel a call takes: "exact", "tile" or "large" (pallas_bp._dispatch).
+
+    Within the exact kernels, the code's shape picks the instance
+    (``tier``): a code of at most 32 checks and 64 variables keeps each
+    thread's rows in registers; a larger one (the exact kernels take codes
+    to E ~ 1,700) takes the table route, an instance of the same kernel
+    that reads its tables from shared memory in every iteration, through
+    the same wrapper, LAUNCHES entry and errors. It is not a fallback:
+    nothing is caught, and nothing moves to the CPU. The tile min-sum
+    ("tile", min-sum) is its own kernel, two frames a thread."""
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}; use exact|precise|fast")
     if impl not in _IMPLS:
@@ -652,6 +680,8 @@ def occupancy(code: LdpcCode, kind: str, sumproduct: bool,
     """(blocks, warps a block): the blocks of the "tile", "large" or "exact"
     kernel that one SM holds at this code's shared memory
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device),
+    for the instance the library's dispatch picks for the code (the exact
+    kernels' tier),
     in the shipped library or ``lib``, a variant of it. ValueError for
     another kind or a code the kind does not take."""
     from ._build import load_library
@@ -661,17 +691,19 @@ def occupancy(code: LdpcCode, kind: str, sumproduct: bool,
     _check_gate(code, kind)
     smem = _GATES[kind][1](code)
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    t = wmajor_tables(code)
     if kind == "exact":
         lib = lib or load_library("bp_exact")
-        err = lib.bp_exact_occupancy(int(sumproduct), check_major_tables(code).Wr,
-                                     smem, ctypes.byref(blocks),
-                                     ctypes.byref(threads))
+        err = lib.bp_exact_occupancy(
+            int(sumproduct), t.Wr, lib.bp_exact_tier(int(sumproduct), t.M,
+                                                     t.N),
+            smem, ctypes.byref(blocks), ctypes.byref(threads))
         what = lib.bp_exact_error_string
     else:
         lib = lib or load_library("bp_wmajor")
-        err = lib.bp_occupancy(int(kind == "large"), int(sumproduct),
-                               wmajor_tables(code).Wr, smem,
-                               ctypes.byref(blocks), ctypes.byref(threads))
+        err = lib.bp_occupancy(int(kind == "large"), int(sumproduct), t.Wr,
+                               smem, ctypes.byref(blocks),
+                               ctypes.byref(threads))
         what = lib.bp_error_string
     if err:
         raise RuntimeError(f"occupancy query failed: {what(err).decode()}")

@@ -39,7 +39,12 @@ shared-memory wavefronts instead (minsum_wavefronts): every message, table,
 study_ms_ref), one 128-byte wavefront a warp access (the layouts are
 conflict-free; a table entry is one address for the warp), at one wavefront
 a clock an SM. Printed beside study_ms_ref's and its stubs' times and the
-study_ms kernels' static mix with their LDS/STS/BAR counts.
+study_ms kernels' static mix with their LDS/STS/BAR counts; then the
+shipped tile and exact min-sum kernels' static mix (kernel_mix; the
+exact kernel's table route and register tier), and the wavefronts of each
+(the tile with one and with two frames a thread; exact_minsum_wavefronts
+for the check-major kernel, whose register tier reads no table and no
+-rx).
 
 A model from static counts and published rates, not a profiler reading
 (ncu does not run where the card is).
@@ -61,7 +66,8 @@ import torch
 __all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
            "by_pipe", "shipped_phi", "under_load", "probe_sass", "exact_mix",
            "exact_floor_ms", "warp_executions", "issue_ms",
-           "minsum_wavefronts", "main"]
+           "minsum_wavefronts", "exact_minsum_wavefronts", "wavefront_ms",
+           "kernel_mix", "MEMORY_OPS", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
 # takes FP32 add/multiply/multiply-add and integer multiply(-add); alu the
@@ -141,6 +147,19 @@ def by_pipe(opcodes) -> dict[str, int]:
     return {"issue": len(opcodes), **{p: c[p] for p in ("fma", "alu", "xu")}}
 
 
+# the memory and barrier opcodes kernel_mix counts beside the pipes
+MEMORY_OPS = ("LDS", "STS", "LDC", "BAR")
+
+
+def kernel_mix(functions: dict[str, list[str]], tag: str) -> dict[str, int]:
+    """Static SASS of the first kernel of ``functions`` (sass_functions of a
+    library's cuobjdump) whose name matches the regular expression ``tag``:
+    counts a pipe (by_pipe) and of each of MEMORY_OPS."""
+    ops = next(ops for name, ops in functions.items() if re.search(tag, name))
+    c = collections.Counter(ops)
+    return {**by_pipe(ops), **{o: c[o] for o in MEMORY_OPS}}
+
+
 def exact_mix(sass: str) -> dict[str, list[str]]:
     """{part: opcodes} of the exact SPA's libm calls (EXACT_PARTS), each the
     region between its probe kernel's load and store, in ``sass``, the
@@ -165,21 +184,58 @@ def warp_executions(code, frames: int, steps: int) -> float:
     return 2 * int(code.H.sum()) * frames * steps / 32
 
 
-def minsum_wavefronts(code, frames: int, steps: int) -> float:
-    """Shared-memory wavefronts of the w-major tile min-sum (32 frames a
-    warp): a check step reads E table entries and the edges' messages and
-    writes them back; a variable step reads N -rx, N*Wc table entries and
-    the edges' messages and writes them; the decision reads as a variable
-    step does and writes N decisions. ``steps`` check steps, one variable
-    step fewer, one decision."""
+# the share of a wavefront each warp row pays for a table entry and for an
+# -rx read, by kernel: the one-frame tile (a warp is one row of 32 frames);
+# the tile min-sum with two frames a thread (a warp is two rows of 16 lanes:
+# a table read serves both rows, each -rx read half of one row's frames);
+# the large-code kernel (a warp is two rows of 16 frames, each read serving
+# both rows)
+WAVEFRONT_SHARES = {"tile": (1.0, 1.0), "pairs": (0.5, 1.0),
+                    "large": (0.5, 0.5)}
+
+
+def minsum_wavefronts(code, frames: int, steps: int,
+                      kernel: str = "tile") -> float:
+    """Shared-memory wavefronts of the w-major min-sum: a check step reads
+    E table entries and the edges' messages and writes them back; a
+    variable step reads N -rx, N*Wc table entries and the edges' messages
+    and writes them; the decision reads as a variable step does and writes
+    N decisions. ``steps`` check steps, one variable step fewer, one
+    decision. A message access is one 128-byte wavefront for 32 frames of
+    one slot (the layouts are conflict-free); a table entry or -rx read
+    costs WAVEFRONT_SHARES[kernel] of one a warp row."""
     H = code.H
     E, N = int(H.sum(1).max()) * code.M, code.N
     Wc, edges = int(H.sum(0).max()), int(H.sum())
-    check = E + 2 * edges
-    var = N + N * Wc + 2 * edges
-    decide = N + N * Wc + edges + N
+    table, rx = WAVEFRONT_SHARES[kernel]
+    check = E * table + 2 * edges
+    var = N * rx + N * Wc * table + 2 * edges
+    decide = N * rx + N * Wc * table + edges + N
     per_warp = steps * check + max(steps - 1, 0) * var + decide
     return per_warp * frames / 32
+
+
+def exact_minsum_wavefronts(code, frames: int, steps: int,
+                            tables: bool = True) -> float:
+    """minsum_wavefronts of the check-major exact min-sum: on the table
+    route a check step also reads each check's width (M), a variable step
+    -rx (N) and the slot table (N*Wc); ``steps`` check steps, one variable
+    step fewer, and one that decides. ``tables`` False: the register tiers,
+    which keep widths, slots and -rx in registers."""
+    H = code.H
+    N, M = code.N, code.M
+    Wc, edges = int(H.sum(0).max()), int(H.sum())
+    table = (M, N + N * Wc) if tables else (0, 0)
+    check = table[0] + 2 * edges
+    var = table[1] + 2 * edges
+    decide = table[1] + edges + N
+    per_warp = steps * check + max(steps - 1, 0) * var + decide
+    return per_warp * frames / 32
+
+
+def wavefront_ms(wavefronts: float, sms: int, clock_mhz: float) -> float:
+    """Milliseconds of ``wavefronts`` at one a clock an SM."""
+    return wavefronts / (sms * clock_mhz * 1e3)
 
 
 def issue_ms(counts: dict[str, int], executions: float, sms: int,
@@ -345,6 +401,25 @@ def main() -> dict:
           f"shared-memory wavefronts on {sms} SMs at {clock['study_ms_ref']} "
           f"MHz -> {wave_ms:.4f} ms = {wave_ms / loaded['study_ms_ref']:.3f} "
           f"of study_ms_ref back to back [{card}]", flush=True)
+    # the shipped min-sum kernels at WR = 6: the tile's (two frames a
+    # thread) and the exact kernel's table route and register tier, static
+    # mix, and the wavefronts of each
+    for lib, tag in (("bp_wmajor", r"bp_minsum_pairsILi6E"),
+                     ("bp_exact", r"bp_exact_kernelILi6ELb0ELi\d+ELi0E"),
+                     ("bp_exact", r"bp_exact_kernelILi6ELb0ELi\d+ELi1E")):
+        fns = sass_functions(sass_dump(build()[lib][0]))
+        print(f"[mix] {lib} {tag} (static, whole kernel): "
+              f"{kernel_mix(fns, tag)}", flush=True)
+    for name, w in (("tile, one frame a thread", waves),
+                    ("tile, two frames a thread",
+                     minsum_wavefronts(code, frames, steps, "pairs")),
+                    ("exact, table route",
+                     exact_minsum_wavefronts(code, frames, steps)),
+                    ("exact, registers",
+                     exact_minsum_wavefronts(code, frames, steps, False))):
+        print(f"[model] min-sum {name}: {w:.4e} wavefronts -> "
+              f"{wavefront_ms(w, sms, clock['study_ms_ref']):.4f} ms [{card}]",
+              flush=True)
     exact = _exact_model(probes, code, rx, frames, steps, sms, card)
     return {"card": card, "pair": pair_pipes, "sfu_phi": sfu_pipes,
             "kernels": kernels, "clock_mhz": clock, "model_ms": model,

@@ -29,20 +29,28 @@ from pathlib import Path
 ITERATIONS = 20
 SWEEP_DB = (1.0, 1.5, 2.0)         # chip_smoke.py's gen_256_512 sweep
 # name -> (cuda_decode_* method, mode, code, frames, Eb/N0 dB, early exit,
-# rx source: a make_inputs seed, or "sweep" for the sweep's draw_frames)
+# rx source, iterations); the rx source is a make_inputs seed, or ("sweep",
+# p) for run_waterfall's draw_frames at grid point p
 CASES = {
     **{f"bp_{m} {form} block_32_64 131072": (m, "precise", "block_32_64",
                                              1 << 17, 4.0, form == "early_exit",
-                                             1000)
+                                             1000, ITERATIONS)
        for m in ("sumproduct", "minsum") for form in ("fixed", "early_exit")},
+    # the reference sweep's step (run_waterfall("sim_50_100"): 125,000
+    # frames, 5 iterations, early exit; 3 dB is its grid point 20)
+    **{f"bp_{m} early_exit sim_50_100 125000x5 @3.0dB": (
+        m, "precise", "sim_50_100", 125_000, 3.0, True, ("sweep", 20), 5)
+       for m in ("sumproduct", "minsum")},
     **{f"bp_{m}_exact block_32_64 131072": (m, "exact", "block_32_64", 1 << 17,
-                                            4.0, False, 1000)
+                                            4.0, False, 1000, ITERATIONS)
        for m in ("sumproduct", "minsum")},
     **{f"bp_{m}_large fixed gen_256_512 16384": (m, "precise", "gen_256_512",
-                                                 1 << 14, 2.0, False, 6)
+                                                 1 << 14, 2.0, False, 6,
+                                                 ITERATIONS)
        for m in ("sumproduct", "minsum")},
     **{f"bp_{m}_large early_exit gen_256_512 131072 @{e}dB": (
-        m, "precise", "gen_256_512", 1 << 17, e, True, "sweep")
+        m, "precise", "gen_256_512", 1 << 17, e, True,
+        ("sweep", SWEEP_DB.index(e)), ITERATIONS)
        for m in ("sumproduct", "minsum") for e in SWEEP_DB},
 }
 
@@ -66,23 +74,23 @@ def run(root: Path, out: Path, label: str) -> dict:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     codes = {"block_32_64": get_code("block_32_64"),
+             "sim_50_100": get_code("sim_50_100"),
              "gen_256_512": LdpcCode.from_h(make_ldpc(256, 512, seed=1),
                                             name="gen_256_512")}
     decoders = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                 "minsum": cuda_bp.cuda_decode_minsum}
     result = {"label": label, "root": str(root), "card": card, "cases": {}}
-    for name, (method, mode, cname, frames, ebn0, ee, src) in CASES.items():
+    for name, (method, mode, cname, frames, ebn0, ee, src,
+               iters) in CASES.items():
         c = codes[cname]
-        if src == "sweep":   # run_waterfall's step 0 at point p
-            rx = draw_frames(c, frames, (0, SWEEP_DB.index(ebn0), 0), ebn0,
-                             dev)[1]
+        if isinstance(src, tuple):   # run_waterfall's step 0 at point p
+            rx = draw_frames(c, frames, (0, src[1], 0), ebn0, dev)[1]
         else:
             rx = make_inputs(c, frames, torch.Generator(device=dev)
                              .manual_seed(src), dev, ebn0)
 
-        def fn(rx=rx, c=c, method=method, mode=mode, ee=ee):
-            return decoders[method](rx, c, ITERATIONS, mode=mode,
-                                    early_exit=ee)
+        def fn(rx=rx, c=c, method=method, mode=mode, ee=ee, iters=iters):
+            return decoders[method](rx, c, iters, mode=mode, early_exit=ee)
 
         v = fn().cpu().numpy()
         result["cases"][name] = {

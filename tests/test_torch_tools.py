@@ -19,10 +19,11 @@ from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
 from gr_ldpc_ece535a_torch.ops import _build, cuda_bp
 from gr_ldpc_ece535a_torch.ops.layout import check_major_tables
 from gr_ldpc_ece535a_torch.tools import (exact_probe, issue_model,
-                                         kernel_times, occupancy)
+                                         kernel_times, occupancy, tile_probe)
 
 TOOLS = {"occupancy": (occupancy, "bp_wmajor"),
-         "exact_probe": (exact_probe, "bp_exact")}
+         "exact_probe": (exact_probe, "bp_exact"),
+         "tile_probe": (tile_probe, "bp_wmajor")}
 SUBSTITUTIONS = [(tool, v) for tool, (mod, _) in TOOLS.items()
                  for v in mod.VARIANTS]
 
@@ -60,6 +61,46 @@ def test_exact_probe_variants_remove_the_libm_calls():
         exact_probe.variant_source(src.replace("logf(", "log("), "skeleton")
 
 
+def test_exact_probe_minsum_variants():
+    """The min-sum skeleton drops the minima; its variable step has no
+    check step; three passes restores the parent's argmin scan; every
+    method names its skeleton and variable step first."""
+    src = _build.SOURCES["bp_exact"].read_text()
+    skeleton = exact_probe.variant_source(src, "minsum skeleton")
+    assert "w == arg ? min2 : min1" not in skeleton
+    only_var = exact_probe.variant_source(src, "minsum variable step")
+    assert "check_minsum<WR>(msg, deg[m], m, f);" not in only_var
+    assert "check_minsum<WR>(msg, (rows.width" not in only_var
+    assert "check_sumproduct<WR>(msg, deg[m], m, f);" in only_var
+    three = exact_probe.variant_source(src, "three passes")
+    assert "the first argmin (the first NaN" in three
+    assert "else if (b < min1" not in three
+    parent = exact_probe.variant_source(src, "parent form")
+    assert "kShapes[] = {{0, 0}};" in parent and "arg = WR;" in parent
+    for method, names in exact_probe.METHODS.items():
+        assert set(names) <= set(exact_probe.VARIANTS)
+        assert set(names[:2]) <= set(exact_probe.TIMING_ONLY)
+        assert not set(names[2:]) & set(exact_probe.TIMING_ONLY)
+
+
+def test_tile_probe_variants():
+    """The tile min-sum's levers: the parent's one-frame kernel, 8 rows,
+    the launch bounds, and the tables in the constant bank, which reach
+    both w-major kernels; the skeleton and variable step are timing only."""
+    src = _build.SOURCES["bp_wmajor"].read_text()
+    assert "kPairs = false;" in tile_probe.variant_source(src, "one frame")
+    assert "constexpr int kPairRows = 8;" in tile_probe.variant_source(
+        src, "rows 8")
+    assert "kPairRows, 6)" in tile_probe.variant_source(src, "min blocks 6")
+    const = tile_probe.variant_source(src, "constant")
+    assert const.count("const __grid_constant__ ParamTables pt") == 2
+    assert const.count("param_tables(slot_var, WR * M, var_slots, N * Wc)") == 2
+    assert "int* sv = " not in const
+    skeleton = tile_probe.variant_source(src, "skeleton")
+    assert "minsum_row<WR>(a," in skeleton and "? va[k] :" not in skeleton
+    assert set(tile_probe.TIMING_ONLY) == {"skeleton", "variable step"}
+
+
 def test_variant_path_names_by_content():
     a = _build.variant_path("bp_exact", "one")
     assert a == _build.variant_path("bp_exact", "one")
@@ -79,6 +120,15 @@ ptxas info    : Used 12 registers
 """
 
 
+_PTXAS_TIERS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115bp_exact_kernelILi6ELb0ELi8ELi0EEEvPKfPaiPKiS5_iiii' for 'sm_90a'
+ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115bp_exact_kernelILi6ELb0ELi8ELi1EEEvPKfPaiPKiS5_iiii' for 'sm_90a'
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115bp_minsum_pairsILi6EEEvPKfPaiPKiS5_iiiiiffii' for 'sm_90a'
+ptxas info    : Used 56 registers, used 1 barriers
+"""
+
+
 def test_exact_probe_reads_ptxas():
     assert exact_probe.ptxas_summary(_PTXAS, 6) == (
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
@@ -86,9 +136,19 @@ def test_exact_probe_reads_ptxas():
     assert exact_probe.ptxas_summary(_PTXAS, 6, sumproduct=False) == (
         "Used 39 registers, used 1 barriers")
     assert exact_probe.ptxas_summary(_PTXAS, 7) == ""
+    # the instance of each tier, whatever its rows
+    assert exact_probe.ptxas_summary(_PTXAS_TIERS, 6, False, 1) == (
+        "Used 64 registers, used 1 barriers")
+    assert exact_probe.ptxas_summary(_PTXAS_TIERS, 6, False, 0) == (
+        "Used 40 registers, used 1 barriers")
+    assert tile_probe.ptxas_summary(_PTXAS_TIERS,
+                                    tile_probe.TAGS["pairs"]) == (
+        "Used 56 registers, used 1 barriers")
+    assert tile_probe.ptxas_summary(_PTXAS_TIERS,
+                                    tile_probe.TAGS["one frame"]) == ""
 
 
-@pytest.mark.parametrize("tool", ["occupancy", "exact_probe"])
+@pytest.mark.parametrize("tool", ["occupancy", "exact_probe", "tile_probe"])
 def test_tools_need_a_card(tool):
     if torch.cuda.is_available():
         pytest.skip("the CPU-only error path")
@@ -137,8 +197,17 @@ def test_kernel_times_table_reads_run_files(tmp_path, capsys):
 def test_kernel_times_cases_cover_the_redesigned_kernels():
     names = list(kernel_times.CASES)
     for want in ("bp_minsum_large fixed gen_256_512 16384",
-                 "bp_sumproduct_exact block_32_64 131072"):
+                 "bp_sumproduct_exact block_32_64 131072",
+                 "bp_minsum_exact block_32_64 131072",
+                 "bp_minsum fixed block_32_64 131072",
+                 "bp_minsum early_exit block_32_64 131072"):
         assert want in names
+    # the reference sweep's step: 125,000 frames, 5 iterations, early
+    # exit, drawn as run_waterfall draws grid point 20 (3 dB)
+    step = kernel_times.CASES["bp_minsum early_exit sim_50_100 125000x5 @3.0dB"]
+    assert step == ("minsum", "precise", "sim_50_100", 125_000, 3.0, True,
+                    ("sweep", 20), 5)
+    assert np.arange(-7.0, 10.25, 0.5)[20] == 3.0
     sweep = [n for n in names if n.startswith("bp_minsum_large early_exit")]
     assert len(sweep) == len(kernel_times.SWEEP_DB) == 3
 
@@ -156,6 +225,39 @@ _EXACT_SASS = "".join(f"""
     ("division", "        /*0020*/                   FADD R0, R2, 1 ;\n"
                  "        /*0030*/                   MUFU.RCP R4, R0 ;\n"
                  "        /*0040*/                   FCHK P0, R2, R0 ;\n")))
+
+
+def test_minsum_wavefronts():
+    """The shared-memory wavefront models at block_32_64 131,072 x 20: the
+    one-frame tile's 91.3 M (0.349 ms at 1980 MHz on 132 SMs) and, without
+    the tables and -rx (the exact kernel's register tier), 54.6 M (0.209
+    ms); two frames a thread pay half the tables' share."""
+    code = get_code("block_32_64")
+    tables = issue_model.minsum_wavefronts(code, 131072, 20)
+    regs = issue_model.exact_minsum_wavefronts(code, 131072, 20, False)
+    assert tables == pytest.approx(91.324416e6)
+    assert regs == pytest.approx(54.624256e6)
+    assert issue_model.wavefront_ms(tables, 132, 1980.0) == pytest.approx(
+        0.34942, abs=1e-5)
+    # per warp and iteration on the one-frame tile: 1,120 less the decision
+    per = issue_model.minsum_wavefronts(code, 32, 2) - \
+        issue_model.minsum_wavefronts(code, 32, 1)
+    assert per == 192 + 2 * 168 + 64 + 192 + 2 * 168
+    pairs = issue_model.minsum_wavefronts(code, 32, 2, "pairs") - \
+        issue_model.minsum_wavefronts(code, 32, 1, "pairs")
+    assert pairs == per - (192 + 192) / 2
+    large = issue_model.minsum_wavefronts(code, 32, 1, "large")
+    assert large < issue_model.minsum_wavefronts(code, 32, 1, "pairs")
+    exact = issue_model.exact_minsum_wavefronts(code, 131072, 20)
+    assert exact == pytest.approx(78.217216e6)
+
+
+def test_kernel_mix_counts_memory_ops():
+    fns = issue_model.sass_functions(_EXACT_SASS)
+    mix = issue_model.kernel_mix(fns, r"exact_\w+_probe")
+    assert mix["issue"] == 6 and mix["xu"] == 1
+    assert all(mix[o] == 0 for o in issue_model.MEMORY_OPS if o != "LDC")
+    assert mix["LDC"] == 1
 
 
 def test_exact_mix_and_floor():
