@@ -79,6 +79,21 @@ Phases, each of which raises on a miss:
                           gen_256_512 sweep on the large-code kernels
                 decode    cuda_decode_*(rx, code) with its default mode,
                           "exact", on the forward's rx
+                receive   StreamReceiver.receive at bench.py's receiver
+                          shape (block_32_64, 2^19 frames, offset 17,
+                          inverted, 6 dB; min-sum and sum-product, 5
+                          iterations, early exit, kernel_mode "fast"): the
+                          8-chunk pipeline, the two-phase path with
+                          weights, receive_dispatch of two segments and
+                          receive_collect_many, and 2 stream shards on the
+                          card; each must lock at (17, inverted), all give
+                          the same frames, accepts and bytes, which are the
+                          body kernel's decisions; the kernel against its
+                          plain version (min-sum identical, SPA the precise
+                          early-exit contract) and against the f32 path
+                          (the precise early-exit contract), on the frames
+                          cut at the lock (tools/receive_check.py); then
+                          entry.dryrun_multichip(4) on the card
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
@@ -97,7 +112,10 @@ Phases, each of which raises on a miss:
               (the SPA aggregation-precision rows as ratios to study_phi);
               the unroll table: each unrolled instance timed against its
               unroll-1 sibling in one interleaved run, with its SASS count,
-              registers and spills
+              registers and spills; the receive's wall by host clock
+              (median of 5 after a warm-up), its profiled split and info
+              bits/s, and its body kernel on one chunk and on the whole
+              body by CUDA events
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
@@ -246,7 +264,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
-    from gr_ldpc_ece535a_torch.entry import EBN0_DB, entry
+    from gr_ldpc_ece535a_torch.entry import EBN0_DB, dryrun_multichip, entry
     from gr_ldpc_ece535a_torch.ops import (
         awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
         encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
@@ -259,9 +277,10 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
     from gr_ldpc_ece535a_torch.tools import (ablate_pallas, fast_kernel_proto,
                                              proto_r2, proto_r3, proto_r3b,
-                                             proto_r3c, proto_r4, proto_r4b)
-    from gr_ldpc_ece535a_torch.tools._timing import (bound_ms, make_inputs,
-                                                     time_decode)
+                                             proto_r3c, proto_r4, proto_r4b,
+                                             receive_check)
+    from gr_ldpc_ece535a_torch.tools._timing import (bins, bound_ms,
+                                                     make_inputs, time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
         by_pipe, exact_floor_ms, exact_minsum_wavefronts, exact_mix,
         minsum_wavefronts, probe_sass, sass_dump, sass_functions, shipped_phi,
@@ -487,20 +506,6 @@ def main() -> int:
                 / 2, "all-zero": torch.zeros_like(rx4), "half-zero": half,
                 "+-30 x codeword": 30.0 * cw,
                 "+-inf and NaN": special.view(rx4.shape)}
-
-    def bins(vk, vp, code):
-        """Four-bin decomposition of the mismatched frames
-        (bench.py::_bench_parity)."""
-        B = vk.shape[0]
-        diff = (vk != vp).any(1)
-        ok_k, ok_p = syndrome_ok(vk, code.H), syndrome_ok(vp, code.H)
-        return {"frames": B, "mismatch": int(diff.sum()),
-                "both_syndrome_fail": int((diff & ~ok_k & ~ok_p).sum()),
-                "both_valid_different": int((diff & ok_k & ok_p).sum()),
-                "only_plain_valid": int((diff & ok_p & ~ok_k).sum()),
-                "only_kernel_valid": int((diff & ok_k & ~ok_p).sum()),
-                "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
-                "succ_plain": float(ok_p.float().mean()) if B else 1.0}
 
     def precise(c, early_exit):
         """The early-exit / fixed contracts of the precise kernels."""
@@ -978,6 +983,24 @@ def main() -> int:
     path_counts = {"": fwd_counts, "_large": sweep_counts,
                    "_exact": dec_counts}
 
+    # the streaming receiver at bench.py's receiver shape: every receive
+    # path for both methods, then each held to the others and to the plain
+    # decoders on the frames cut at the lock
+    sent_rx, stream_rx = receive_check.make_stream(code, receive_check.FRAMES,
+                                                   dev)
+    rx_paths, rx_counts = drive(
+        "receive", lambda: {m: receive_check.receive_paths(code, stream_rx, m,
+                                                           dev)
+                            for m in receive_check.METHODS},
+        ("bp_minsum", "bp_sumproduct"))
+    for m in receive_check.METHODS:
+        receive_check.check(code, stream_rx, sent_rx, rx_paths[m], m, dev,
+                            log=log)
+    del rx_paths
+    for name in ("bp_minsum", "bp_sumproduct"):    # launches on both paths
+        fwd_counts[name] += rx_counts[name]
+    dryrun_multichip(4, device=dev)
+
     # each study script's main at the prototypes' size: its variants'
     # kernels, timed beside their plain versions
     study_rows, study_counts = [], dict.fromkeys(cuda_study.INSTANCES, 0)
@@ -1318,6 +1341,25 @@ def main() -> int:
             f"{s1:.4f} / {u1:.4f} / {u2:.4f} / {s2:.4f} ms)")
     log("    textbook SPA (no bar): " + "; ".join(
         f"{k} agree {a:.5f} FER {f:.6f}" for k, (a, f) in textbook.items()))
+    # the receive: its wall, split and info bits/s; its body kernel alone
+    for m, name in receive_check.METHODS.items():
+        t = receive_check.time_receive(code, stream_rx, m, dev)
+        log(f"[times] receive {name} {t['n_frames']} frames (offset "
+            f"{receive_check.OFFSET}, inverted, {receive_check.EBN0_DB} dB, "
+            f"{receive_check.ITERATIONS} iterations, early exit, fast, 8 "
+            f"chunks, bitmask): {t['wall_s'] * 1e3:.4f} ms host clock, "
+            f"median of {len(t['walls_s'])} after a warm-up ("
+            + " ".join(f"{w * 1e3:.4f}" for w in t["walls_s"]) + f"), "
+            f"{t['info_bit_s']:.4e} info bit/s; one profiled receive: "
+            + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in t["profiled"].items())
+            + f"; in one chunk {t['one_chunk_wall_s'] * 1e3:.4f} ms host "
+            f"clock (median of {len(t['walls_s'])}); the body kernel by CUDA "
+            f"events: a chunk of "
+            f"{t['chunk_frames']} frames {t['chunk_ms']:.4f} ms (x8 "
+            f"{8 * t['chunk_ms']:.4f}), the whole body {t['body_ms']:.4f} "
+            f"ms [{card}]")
+    del stream_rx, sent_rx
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""

@@ -7,6 +7,8 @@ way.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -15,7 +17,10 @@ __all__ = ["unpack_bits", "pack_bits", "unpack_bits_np", "pack_bits_np"]
 _SHIFTS = tuple(7 - j for j in range(8))  # MSB first
 
 
-def _shifts(device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _shifts(device: torch.device) -> torch.Tensor:
+    """The shift vector, uploaded once a device: a host-to-device copy from
+    pageable memory waits for the work queued on the stream."""
     return torch.tensor(_SHIFTS, dtype=torch.int32, device=device)
 
 

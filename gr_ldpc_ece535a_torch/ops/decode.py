@@ -123,9 +123,21 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
     return (x > 0).to(x.dtype) - (x < 0).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _h_transposed(shape: tuple, data: bytes, dtype: str,
+                  device: torch.device) -> torch.Tensor:
+    """H.T as f32 on ``device``, uploaded once per (H, device)."""
+    H = np.frombuffer(data, dtype=dtype).reshape(shape)
+    return torch.tensor(H.T, dtype=torch.float32, device=device)
+
+
 def syndrome_weight(vhat: torch.Tensor, H: np.ndarray) -> torch.Tensor:
-    """Number of unsatisfied checks per frame: popcount(H @ vhat mod 2). (B,)"""
-    Ht = torch.as_tensor(H.T, dtype=torch.float32, device=vhat.device)
+    """Number of unsatisfied checks per frame: popcount(H @ vhat mod 2). (B,)
+
+    H.T stays on the device after the first call: a host-to-device copy from
+    pageable memory would wait for the work already queued on the stream."""
+    H = np.ascontiguousarray(H)
+    Ht = _h_transposed(H.shape, H.tobytes(), H.dtype.str, vhat.device)
     s = vhat.to(torch.float32) @ Ht
     return torch.remainder(s.to(torch.int32), 2).sum(-1)
 

@@ -1,4 +1,4 @@
-"""Monte-Carlo BER/FER sweep step on one device.
+"""Monte-Carlo BER/FER sweep step, on one device or over a mesh.
 
 The counterpart of ``gr_ldpc_ece535a_tpu/parallel/sweep.py``. A step draws
 its frames on the device from (key, Eb/N0): data bits -> ``encode_bits`` ->
@@ -11,8 +11,13 @@ simulator does:
 
 The counts are int64 sums on the device, fetched to the host once a step.
 (The JAX step casts its int32 sums to float32 before its psum, which rounds
-counts above 2^24 - 131,072 frames x N = 640 bits reach that.) The sum
-across processes comes with the port's parallel layer.
+counts above 2^24 - 131,072 frames x N = 640 bits reach that.)
+
+Over a mesh (parallel/mesh.py) every shard of the "batch" axis draws its own
+frames from (*key, i), i its global shard index, so the process layout never
+changes a count; a one-shard step draws from key itself, as a step on one
+device does. The counts are summed in int64 on the device within a process
+and by ``torch.distributed.all_reduce`` across the mesh's processes.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..codes import LdpcCode
 from ..ops import awgn, bpsk_map, encode_bits, make_decoder, syndrome_weight
 from ..ops.cuda_bp import cuda_decode_minsum, cuda_decode_sumproduct, supported
 from ..ops.decode import METHODS
+from .mesh import Mesh, mesh_axis_sizes
 
 __all__ = ["SweepStats", "make_sweep_step", "draw_frames", "count_errors"]
 
@@ -66,18 +72,32 @@ def draw_frames(code: LdpcCode, frames: int, key, ebn0_db: float,
     return u, awgn(g, bpsk_map(u), ebn0_db)
 
 
-def count_errors(vhat: torch.Tensor, u: torch.Tensor,
-                 code: LdpcCode) -> SweepStats:
-    """The step's counters, summed in int64 on the device, one fetch."""
+def _counts(vhat: torch.Tensor, u: torch.Tensor, code: LdpcCode) -> torch.Tensor:
+    """(bit, info bit, frame, detected) errors as an int64 (4,) device tensor."""
     wrong = vhat != u
-    counts = torch.stack([
+    return torch.stack([
         wrong.sum(dtype=torch.int64),
         wrong[:, code.M:].sum(dtype=torch.int64),
         wrong.any(1).sum(dtype=torch.int64),
         (syndrome_weight(vhat, code.H) > 0).sum(dtype=torch.int64),
-    ]).tolist()
+    ])
+
+
+def count_errors(vhat: torch.Tensor, u: torch.Tensor,
+                 code: LdpcCode) -> SweepStats:
+    """The step's counters, summed in int64 on the device, one fetch."""
     B = u.shape[0]
-    return SweepStats(*counts, n_frames=B, n_bits=B * code.N)
+    return SweepStats(*_counts(vhat, u, code).tolist(), n_frames=B,
+                      n_bits=B * code.N)
+
+
+def _all_reduce(counts: torch.Tensor, group) -> torch.Tensor:
+    """int64 sum across the group's processes (gloo on host tensors)."""
+    import torch.distributed as dist
+
+    buf = counts if dist.get_backend(group) == "nccl" else counts.cpu()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf
 
 
 def _kernel_decoder(code, method, iterations, early_exit):
@@ -100,9 +120,12 @@ def make_sweep_step(
     early_exit: bool = True,
     decode_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
     backend: str = "auto",
+    batch_axis: str = "batch",
 ) -> Callable[[Sequence[int] | int, float], SweepStats]:
-    """Build the step: (key, ebn0_db) -> SweepStats, on ``device``. The
-    step's ``decode`` attribute is the decoder it runs.
+    """Build the step: (key, ebn0_db) -> SweepStats, on ``device`` or over
+    the ``batch_axis`` of a mesh (``device`` a parallel.mesh.Mesh), each
+    shard drawing ``frames_per_device`` frames. The step's ``decode``
+    attribute is the decoder it runs.
 
     ``decode_fn`` overrides the decoder; otherwise ``backend`` picks it:
     "torch" = the plain decoders of ops/decode.py (any device); "cuda" =
@@ -110,6 +133,13 @@ def make_sweep_step(
     "auto" = the kernels for the BP methods on a CUDA device when the code
     fits one of them, the plain decoders otherwise.
     """
+    mesh = device if isinstance(device, Mesh) else None
+    if mesh is None:
+        shards, n_batch = [(0, torch.device(device))], 1
+    else:
+        shards = mesh.axis_shards(batch_axis)
+        n_batch = mesh_axis_sizes(mesh)[batch_axis]
+        device = mesh.devices[0]
     device = torch.device(device)
     name = METHODS[method] if isinstance(method, int) else method
     if backend not in _BACKENDS:
@@ -128,8 +158,16 @@ def make_sweep_step(
                                     early_exit=early_exit, backend="torch")
 
     def step(key, ebn0_db: float) -> SweepStats:
-        u, rx = draw_frames(code, frames_per_device, key, ebn0_db, device)
-        return count_errors(dec(rx), u, code)
+        total = torch.zeros(4, dtype=torch.int64, device=device)
+        for i, dev in shards:
+            shard_key = key if n_batch == 1 else [*np.atleast_1d(key).tolist(), i]
+            u, rx = draw_frames(code, frames_per_device, shard_key, ebn0_db, dev)
+            total += _counts(dec(rx), u, code).to(device)
+        if mesh is not None and mesh.group is not None:
+            total = _all_reduce(total, mesh.group)
+        frames = n_batch * frames_per_device
+        return SweepStats(*total.tolist(), n_frames=frames,
+                          n_bits=frames * code.N)
 
     step.decode = dec        # the decoder the step runs, rx -> vhat
     return step

@@ -17,12 +17,12 @@ import torch
 
 from ..codes import LdpcCode, get_code
 
-from ..ops import awgn, bpsk_map, encode_bits
+from ..ops import awgn, bpsk_map, encode_bits, syndrome_ok
 from ..ops.cuda_study import study_decode, study_plain
 from ..ops.cuda_study_ms import study_ms_decode, study_ms_plain
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
+           "bins", "bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
            "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE"]
 
 TIMED_LAUNCHES = 20
@@ -90,6 +90,21 @@ def bound_ms(code: LdpcCode, frames: int, iterations: int,
               / F32_OPS_S * 1e3)
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
+
+
+def bins(vk: torch.Tensor, vp: torch.Tensor, code: LdpcCode) -> dict:
+    """Four-bin decomposition of the frames where two decoders' decisions
+    differ (bench.py::_bench_parity), and each decoder's syndrome success."""
+    B = vk.shape[0]
+    diff = (vk != vp).any(1)
+    ok_k, ok_p = syndrome_ok(vk, code.H), syndrome_ok(vp, code.H)
+    return {"frames": B, "mismatch": int(diff.sum()),
+            "both_syndrome_fail": int((diff & ~ok_k & ~ok_p).sum()),
+            "both_valid_different": int((diff & ok_k & ok_p).sum()),
+            "only_plain_valid": int((diff & ok_p & ~ok_k).sum()),
+            "only_kernel_valid": int((diff & ok_k & ~ok_p).sum()),
+            "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
+            "succ_plain": float(ok_p.float().mean()) if B else 1.0}
 
 
 def study_kind(kind: str) -> str:

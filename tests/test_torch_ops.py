@@ -129,3 +129,35 @@ def test_tables_from_jax_rejects_inconsistent_arrays():
         tables_from_jax(bcm, gram, np.zeros_like(padbig), Wr)
     with pytest.raises(ValueError, match="multiple"):
         tables_from_jax(bcm, gram, padbig, 5)
+
+
+def test_device_constants_are_uploaded_once():
+    """syndrome_weight's H.T and the packers' shift vector stay on the
+    device after their first call (a pageable upload would wait for the
+    queued work); the outputs are those of the plain formulas."""
+    from gr_ldpc_ece535a_torch.codes import get_code as port_code
+    from gr_ldpc_ece535a_torch.ops import bits as pbits
+    from gr_ldpc_ece535a_torch.ops import decode as pdecode
+
+    code = port_code("block_32_64")
+    rng = np.random.default_rng(4)
+    vhat = torch.from_numpy(rng.integers(0, 2, (300, code.N), dtype=np.int8))
+    want = ((vhat.numpy().astype(np.int64) @ code.H.T.astype(np.int64)) % 2
+            ).sum(-1)
+    np.testing.assert_array_equal(ops.syndrome_weight(vhat, code.H).numpy(), want)
+    before = pdecode._h_transposed.cache_info()
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            ops.syndrome_weight(vhat, code.H).numpy(), want)
+    after = pdecode._h_transposed.cache_info()
+    assert after.misses == before.misses and after.hits == before.hits + 3
+    H = np.ascontiguousarray(code.H)
+    assert pdecode._h_transposed(H.shape, H.tobytes(), H.dtype.str,
+                                 vhat.device) is pdecode._h_transposed(
+        H.shape, H.tobytes(), H.dtype.str, vhat.device)
+    data = rng.integers(0, 256, (50, 4), dtype=np.uint8)
+    shifts = pbits._shifts(torch.device("cpu"))
+    bits = ops.unpack_bits(torch.from_numpy(data))
+    np.testing.assert_array_equal(bits.numpy(), np.unpackbits(data, axis=-1))
+    np.testing.assert_array_equal(ops.pack_bits(bits).numpy(), data)
+    assert pbits._shifts(torch.device("cpu")) is shifts
