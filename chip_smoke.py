@@ -94,6 +94,25 @@ Phases, each of which raises on a miss:
                           (the precise early-exit contract), on the frames
                           cut at the lock (tools/receive_check.py); then
                           entry.dryrun_multichip(4) on the card
+                flowgraph the port's blocks (tools/flowgraph_check.py):
+                          (a) the image loopback, a 512 x 512 RGB BMP of
+                          seed 0 padded to whole frames, FileSource(repeats
+                          3) -> LdpcEncoderBlock -> ChannelModelBlock(
+                          noise_voltage 0.0631, phase_offset pi) ->
+                          LdpcDecoderBlock(method 0 and 1, 5 iterations) ->
+                          ImageSink on the card, 589,866 frames a method:
+                          every image written equal to the BMP, at least
+                          two, the decoder locked inverted, bp_minsum
+                          launched under method 0 and bp_sumproduct under 1;
+                          (b) 131,072 frames of random bytes through the
+                          encoder block and AwgnBlock(6 dB), with a 17-symbol
+                          junk prefix, negated, a burst of 12 random-symbol
+                          frames at the middle, from a complex64 file
+                          through the decoder block on the card and on the
+                          CPU (plain versions): the same sync log, with a
+                          fall-out and a relock; min-sum identical bytes,
+                          sum-product the precise early-exit contract on
+                          the frames emitted
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
@@ -115,7 +134,11 @@ Phases, each of which raises on a miss:
               registers and spills; the receive's wall by host clock
               (median of 5 after a warm-up), its profiled split and info
               bits/s, and its body kernel on one chunk and on the whole
-              body by CUDA events
+              body by CUDA events; the flowgraph path's image loopback (its
+              phase 4 runs): wall and info bits/s by host clock, the
+              decoder block's work() calls by host clock, and its kernel
+              alone on the batches it decoded by CUDA events
+              (flowgraph_check.kernel_ms); leg (b)'s two runs by host clock
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
@@ -276,8 +299,9 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
     from gr_ldpc_ece535a_torch.tools import (ablate_pallas, fast_kernel_proto,
-                                             proto_r2, proto_r3, proto_r3b,
-                                             proto_r3c, proto_r4, proto_r4b,
+                                             flowgraph_check, proto_r2,
+                                             proto_r3, proto_r3b, proto_r3c,
+                                             proto_r4, proto_r4b,
                                              receive_check)
     from gr_ldpc_ece535a_torch.tools._timing import (bins, bound_ms,
                                                      make_inputs, time_decode)
@@ -1001,6 +1025,23 @@ def main() -> int:
         fwd_counts[name] += rx_counts[name]
     dryrun_multichip(4, device=dev)
 
+    # the flowgraph path: the image loopback through the port's blocks on
+    # the card, both methods (leg a); then the decoder block's sync machine
+    # on a recorded stream, on the card and on the CPU, held to each other
+    # (leg b)
+    def flowgraph_legs():
+        loop = {m: flowgraph_check.image_loopback(m, dev, log=log)
+                for m in flowgraph_check.KERNEL}
+        link = flowgraph_check.make_link(flowgraph_check.FRAMES, dev)
+        acq = {m: flowgraph_check.acquisition(m, dev, link=link, log=log)
+               for m in flowgraph_check.KERNEL}
+        return loop, acq
+
+    (fg_loop, fg_acq), fg_counts = drive(
+        "flowgraph", flowgraph_legs, ("bp_minsum", "bp_sumproduct"))
+    for name in ("bp_minsum", "bp_sumproduct"):    # launches on three paths
+        fwd_counts[name] += fg_counts[name]
+
     # each study script's main at the prototypes' size: its variants'
     # kernels, timed beside their plain versions
     study_rows, study_counts = [], dict.fromkeys(cuda_study.INSTANCES, 0)
@@ -1360,6 +1401,26 @@ def main() -> int:
             f"{8 * t['chunk_ms']:.4f}), the whole body {t['body_ms']:.4f} "
             f"ms [{card}]")
     del stream_rx, sent_rx
+    # the flowgraph path's image loopback (phase 4's runs): its wall and
+    # info bits/s by host clock, the decoder block's work() calls by host
+    # clock; then its kernels alone on the batches it decoded, by CUDA events
+    for m, r in fg_loop.items():
+        k_ms = flowgraph_check.kernel_ms(r["decode"], r["batches"])
+        log(f"[times] flowgraph image loopback {flowgraph_check.KERNEL[m]}: "
+            f"{r['frames']} frames in {r['wall_s'] * 1e3:.4f} ms host clock "
+            f"({r['info_bit_s']:.4e} info bit/s); the decoder block's work() "
+            f"{r['work_s'] * 1e3:.4f} ms host clock "
+            f"({100 * r['work_s'] / r['wall_s']:.1f}% of the wall); its "
+            f"kernel alone on its {len(r['batches'])} batches "
+            f"({sum(len(b) for b in r['batches'])} frames) {k_ms:.4f} ms by "
+            f"CUDA events ({100 * k_ms / 1e3 / r['wall_s']:.2f}% of the "
+            f"wall) [{card}]")
+    del fg_loop
+    for m, r in fg_acq.items():
+        log(f"[times] flowgraph acquisition {flowgraph_check.KERNEL[m]}: "
+            f"{r['frames_emitted']} frames emitted, {r['device_s'] * 1e3:.4f}"
+            f" ms on the card, {r['cpu_s'] * 1e3:.4f} ms on the cpu (plain "
+            f"versions), host clock [{card}]")
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""

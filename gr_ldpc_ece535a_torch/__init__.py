@@ -7,10 +7,16 @@ numpy-only code registry (``codes/``).
 
 Layout:
   codes/     the code registry: parity-check matrices, GF(2) preprocessing
-  ops/       bits, encode, channel, plain decoders, CUDA BP kernel wrappers
+  ops/       bits, encode, channel, plain decoders, CUDA BP kernel wrappers,
+             the float64 oracles, the channel model's resampler
   csrc/      hand-written CUDA kernels, built with nvcc at first use
-  parallel/  the Monte-Carlo sweep step
+  parallel/  meshes, the sweep step, the stream decode, the streaming receiver
   sim/       BER/FER waterfalls (the reference's ldpc_lapack experiment)
+  runtime/   the native C++ host runtime (oracle decoders, ring, BMP scanner,
+             threaded pipeline), built with g++ at first use
+  blocks/    the flowgraph layer: stream blocks, the decoder block's sync
+             state machine, the YAML loader
+  utils/     configs, BMP helpers, timers
   apps/      command-line apps, run with python -m
   entry.py   the flagship forward step (encode -> AWGN -> 20-iteration BP -> pack)
 """

@@ -7,7 +7,8 @@ The counterpart of ``apps/ldpc_stream_rx.py``. Reads a recorded complex64
 symbol stream, acquires frame sync (offset and polarity) with one batched
 search, then decodes the whole stream with ``StreamReceiver`` on the
 device (``--device``, the card by default; ``cpu`` runs the kernels' plain
-versions). Writes the decoded bytes to ``--out``, or to stdout as text.
+versions). Writes the decoded bytes to ``--out``, feeds them to an image
+sink writing BMPs to ``--image-out``, or writes them to stdout as text.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ def main(argv=None) -> None:
                     help="recorded complex64 symbol stream")
     ap.add_argument("--out", default=None,
                     help="write decoded bytes here (default: stdout as text)")
+    ap.add_argument("--image-out", default=None,
+                    help="feed decoded bytes to an image sink writing here")
     ap.add_argument("--method", type=int, default=0)
     ap.add_argument("--iterations", type=int, default=5)
     ap.add_argument("--device", default="cuda",
@@ -48,7 +51,15 @@ def main(argv=None) -> None:
     print(f"locked: offset={a.offset} inverted={a.inverted} "
           f"frames={res.n_frames} accepted={int(res.accepted.sum())}",
           file=sys.stderr)
-    if args.out:
+    if args.image_out:
+        from gr_ldpc_ece535a_torch.blocks import (
+            FlowGraph, ImageSink, VectorSource)
+        fg = FlowGraph()
+        sink = ImageSink(out_path=args.image_out, verbose=False)
+        fg.connect(VectorSource(np.frombuffer(res.data, np.uint8)), sink)
+        fg.run()
+        print(f"images written: {sink.images_written}", file=sys.stderr)
+    elif args.out:
         Path(args.out).write_bytes(res.data)
     else:
         sys.stdout.write(res.data.decode("latin-1"))
