@@ -113,6 +113,26 @@ Phases, each of which raises on a miss:
                           fall-out and a relock; min-sum identical bytes,
                           sum-product the precise early-exit contract on
                           the frames emitted
+                chain     the receive DSP chain (tools/chain_check.py): a
+                          raw sample stream of random bytes of block_32_64
+                          (encode, RRC pulse shaping at 2 samples a symbol,
+                          45 taps, fractional_resample(1 + 50e-6),
+                          mix(-0.01), noise 0.05 from a seeded generator),
+                          all on the card, 131,072 frames through
+                          rx_chain_pairs with timing "track" (blocks of
+                          8,192 symbols, rate clip 2.5e-4) and "ff", and
+                          8,192 frames with the app's default (blocks of
+                          64); each into StreamReceiver.receive, min-sum
+                          and sum-product, 5 iterations: each must lock,
+                          recover at least 99% of the sent frames, and
+                          emit every frame with its sent bytes (lost frames
+                          printed); its payload must be its body decoder's
+                          decisions on the frames cut at the lock, and the
+                          kernel its plain version's (min-sum identical,
+                          SPA the precise early-exit contract); the
+                          8,192-frame stream also through the chain and
+                          the receive on the CPU: the same lock, frames,
+                          accepts and bytes as on the card
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
@@ -138,7 +158,13 @@ Phases, each of which raises on a miss:
               phase 4 runs): wall and info bits/s by host clock, the
               decoder block's work() calls by host clock, and its kernel
               alone on the batches it decoded by CUDA events
-              (flowgraph_check.kernel_ms); leg (b)'s two runs by host clock
+              (flowgraph_check.kernel_ms); leg (b)'s two runs by host clock;
+              the chain path's stages by CUDA events (block AGC, CFO, mix,
+              the tracker in all and a block, V&V) in its three settings,
+              the chain's samples a second by timing block (256-8,192, on
+              the 8,192-frame stream; the composed setting on the
+              131,072-frame one), and the chain with the receive by host
+              clock (median and spread of 5) in info bits a second
 Each kernel's record carries its bound: the larger of its bytes (rx read
 once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
@@ -181,6 +207,8 @@ SWEEP_FRAMES = 1_000_000
 SWEEP_GRID = np.arange(-7.0, 10.0 + 0.25, 0.5)   # run_waterfall's defaults
 SWEEP_ITERS = 5
 STEP_FRAMES = 1 << 17
+CHAIN_FRAMES = 1 << 17                             # the JAX chain bench's segment
+CHAIN_APP_FRAMES = 1 << 13                         # the app's 64-symbol blocks
 LARGE_PTS = (1.0, 1.5, 2.0)                        # the gen_256_512 sweep
 SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_large": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
@@ -291,14 +319,15 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.ops import (
         awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
         encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
-    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study, cuda_study_ms
+    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study, cuda_study_ms, dsp
     from gr_ldpc_ece535a_torch.ops._build import build, load_library
     from gr_ldpc_ece535a_torch.ops.layout import (
         check_major_tables, edge_slots, wmajor_tables)
     from gr_ldpc_ece535a_torch.parallel import make_sweep_step
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
-    from gr_ldpc_ece535a_torch.tools import (ablate_pallas, fast_kernel_proto,
+    from gr_ldpc_ece535a_torch.tools import (ablate_pallas, bench_chain,
+                                             chain_check, fast_kernel_proto,
                                              flowgraph_check, proto_r2,
                                              proto_r3, proto_r3b, proto_r3c,
                                              proto_r4, proto_r4b,
@@ -1042,6 +1071,43 @@ def main() -> int:
     for name in ("bp_minsum", "bp_sumproduct"):    # launches on three paths
         fwd_counts[name] += fg_counts[name]
 
+    # the receive chain: raw sample streams through rx_chain_pairs in three
+    # settings, each into the receiver with both methods; each held to the
+    # sent frames and its body kernel to the plain version; the app's
+    # setting also through the chain and the receive on the CPU
+    ch_data, ch_xp = bench_chain.impaired_stream(code, CHAIN_FRAMES, 3, dev)
+    app_data, app_xp = bench_chain.impaired_stream(code, CHAIN_APP_FRAMES, 5,
+                                                   dev)
+    ch_cfg = chain_check.CONFIGS
+
+    def chain_path():
+        sp = chain_check.chains(ch_xp, {k: ch_cfg[k] for k in ("track", "ff")})
+        sp.update(chain_check.chains(app_xp, {"app": ch_cfg["app"]}))
+        return sp, {(tag, m): chain_check.receive(code, s[0], m)
+                    for tag, s in sp.items() for m in receive_check.METHODS}
+
+    (ch_sp, ch_res), ch_counts = drive("chain", chain_path,
+                                       ("bp_minsum", "bp_sumproduct"))
+    for (tag, m), r in ch_res.items():
+        sent = (app_data if tag == "app" else ch_data).cpu().numpy()
+        chain_check.check(code, sent, ch_sp[tag][0], r, m, tag, log=log)
+    for name in ("bp_minsum", "bp_sumproduct"):    # launches on four paths
+        fwd_counts[name] += ch_counts[name]
+    t0 = time.perf_counter()
+    cpu_sp = chain_check.chains(app_xp.cpu(), {"app": ch_cfg["app"]})["app"]
+    log(f"[chain] app on the CPU: the chain in {time.perf_counter() - t0:.1f} "
+        f"s; its symbols against the card's: max |difference| "
+        f"{float((cpu_sp - ch_sp['app'].cpu()).abs().max()):.3e} over "
+        f"{cpu_sp.shape[1]} symbols (card {ch_sp['app'].shape[1]})")
+    for m, name in receive_check.METHODS.items():
+        r = chain_check.receive(code, cpu_sp[0], m)
+        if not chain_check.same_result(ch_res[("app", m)], r):
+            raise AssertionError(f"chain app {name}: the CPU's receive differs "
+                                 f"from the card's")
+        log(f"[chain] app {name}: the CPU's lock, frames, accepts and bytes "
+            f"are the card's")
+    del ch_sp, ch_res, cpu_sp
+
     # each study script's main at the prototypes' size: its variants'
     # kernels, timed beside their plain versions
     study_rows, study_counts = [], dict.fromkeys(cuda_study.INSTANCES, 0)
@@ -1421,6 +1487,45 @@ def main() -> int:
             f"{r['frames_emitted']} frames emitted, {r['device_s'] * 1e3:.4f}"
             f" ms on the card, {r['cpu_s'] * 1e3:.4f} ms on the cpu (plain "
             f"versions), host clock [{card}]")
+    # the receive chain: its stages, its samples a second by timing block,
+    # and the chain with the receive by host clock
+    for tag, xp_, kw in (("track", ch_xp, ch_cfg["track"]),
+                         ("ff", ch_xp, ch_cfg["ff"]),
+                         ("app", app_xp, ch_cfg["app"])):
+        reps = 1 if tag == "app" else 3      # the app's tracker: ~5 s a run
+        st = chain_check.stage_ms(xp_, reps=reps, **kw)
+        log(f"[times] chain stages {tag} {kw}, {xp_.shape[1]} samples, CUDA "
+            f"events (median of {reps} after a warm-up): " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in st.items()) + f" ms [{card}]")
+    for tbs in bench_chain.TIMING_BLOCKS:
+        r = bench_chain.chain_rates(app_xp, reps=3, timing_block_syms=tbs)
+        log(f"[times] chain, timing block {tbs}, {app_xp.shape[1]} samples: "
+            f"{r['ms']['median']:.4f} ms (min {r['ms']['min']:.4f}, max "
+            f"{r['ms']['max']:.4f}), {r['samples_s']:.4e} samples/s; the "
+            f"half stream {r['half_ms']['median']:.4f} ms; from the "
+            f"difference {r['slope_samples_s']} samples/s [{card}]")
+    r = bench_chain.chain_rates(ch_xp, reps=3, **ch_cfg["track"])
+    log(f"[times] chain composed {ch_cfg['track']}, {ch_xp.shape[1]} samples: "
+        f"{r['ms']['median']:.4f} ms (min {r['ms']['min']:.4f}, max "
+        f"{r['ms']['max']:.4f}), {r['samples_s']:.4e} samples/s; from the "
+        f"difference {r['slope_samples_s']} samples/s [{card}]")
+    for m, name in receive_check.METHODS.items():
+        chain_check.receive(code, dsp.rx_chain_pairs(
+            ch_xp, sps=2, **ch_cfg["track"])[0], m)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = chain_check.receive(code, dsp.rx_chain_pairs(
+                ch_xp, sps=2, **ch_cfg["track"])[0], m)
+            walls.append(time.perf_counter() - t0)
+        sp_ = bench_chain.spread(walls)
+        log(f"[times] chain + receive {name}, composed, {CHAIN_FRAMES} frames "
+            f"sent, {res.n_frames} after the lock: {sp_['median'] * 1e3:.4f} "
+            f"ms host clock, median of 5 after a warm-up (min "
+            f"{sp_['min'] * 1e3:.4f}, max {sp_['max'] * 1e3:.4f}), "
+            f"{res.n_frames * code.K / sp_['median']:.4e} info bit/s [{card}]")
+    del ch_xp, app_xp
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""

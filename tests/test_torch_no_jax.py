@@ -54,7 +54,8 @@ def test_scan_covers_the_port():
             "blocks/base.py", "blocks/io.py", "blocks/channel.py",
             "blocks/ldpc.py", "blocks/viz.py", "blocks/graphcfg.py",
             "apps/ldpc_dump.py", "apps/ldpc_flowgraph.py",
-            "apps/ldpc_image_loopback.py"} <= names
+            "apps/ldpc_image_loopback.py", "tools/bench_chain.py",
+            "tools/chain_check.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))
