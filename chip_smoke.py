@@ -6,8 +6,12 @@
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu,
-              csrc/bp_study.cu and csrc/bp_study_ms.cu, in parallel, into
-              gr_ldpc_ece535a_torch/_build/; prints ptxas's summary; counts
+              csrc/bp_study.cu, csrc/bp_study_ms.cu and csrc/dsp_loops.cu,
+              in parallel, into gr_ldpc_ece535a_torch/_build/; prints
+              ptxas's summary; reads each loop kernel's recurrence off its
+              SASS (tools/issue_model.py loop_chain: the least chain of
+              dependent instructions a sample over the paths through the
+              loop, 4 cycles a link); counts
               each study kernel's static SASS instructions (cuobjdump) and
               fails unless every unrolled instance has more than its
               unroll-1 sibling; the SASS of the w-major SPA kernels'
@@ -54,6 +58,16 @@ Phases, each of which raises on a miss:
               sibling at 131,072 x 20 (0 mismatching frames each), and the
               textbook SPA's agreement and frame error share against the sent
               codewords beside the shipped SPA's (no bar).
+              The streaming blocks' loop kernels (csrc/dsp_loops.cu,
+              tools/dsp_loops_check.py): agc_loop on 16,391 samples (four
+              whole 4,096-sample tiles and 7) of an impaired stream (BPSK,
+              1e-3 cycles/sample carrier offset, noise 0.05, gain 2.5) and
+              costas_loop on its output, each against its plain version on
+              the card (a launch per torch operation and sample): the same
+              output bit for bit, the same final state, and pieces of 7,
+              4,096, 4,097 and 8,191 samples, each from the last one's
+              state, the one call's output and state bit for bit; at the
+              flowgraph path's shapes see phase 4's leg (c).
               The w-major kernels against their plain versions: identical
               decisions (min-sum, every comparison), or (SPA, whose log tanh
               runs on the SFU) the precise contracts: early exit at most
@@ -112,7 +126,30 @@ Phases, each of which raises on a miss:
                           CPU (plain versions): the same sync log, with a
                           fall-out and a relock; min-sum identical bytes,
                           sum-product the precise early-exit contract on
-                          the frames emitted
+                          the frames emitted; (c) examples/example4_full.yaml
+                          through load_flowgraph(..., "cuda"), the
+                          reference's flagship receiver (encoder, RRC at 2
+                          samples a symbol, a channel with a 0.01
+                          cycles/sample carrier offset and 50 ppm clock
+                          drift, AGC, the FLL role, the clock tracker,
+                          Costas, decoder, image and plot sinks into a
+                          temporary directory), its source the RGB BMP of
+                          seed 0 sent three times, 128 x 128 under method 0
+                          (its own, min-sum) and 64 x 64 under method 1: the
+                          decoder locks, at least one image written equals
+                          the BMP byte for byte, agc_loop, costas_loop and
+                          the method's BP kernel launch; after the
+                          counts are read, each chunk the AGC and Costas
+                          blocks got there (the lengths the path gives,
+                          not whole tiles) is held at its own shape: the
+                          kernel over it gives the block's output, its
+                          first 16,384 samples the plain version's, and the
+                          chunk cut 7 samples into its last tile, the two
+                          calls give the one call's output and state and
+                          the partial tile after the cut the plain
+                          version's from the state at the cut; examples/
+                          example2.yaml and example3.yaml on the card and on
+                          the CPU at tests/test_graphcfg.py's bars
                 chain     the receive DSP chain (tools/chain_check.py): a
                           raw sample stream of random bytes of block_32_64
                           (encode, RRC pulse shaping at 2 samples a symbol,
@@ -159,6 +196,14 @@ Phases, each of which raises on a miss:
               decoder block's work() calls by host clock, and its kernel
               alone on the batches it decoded by CUDA events
               (flowgraph_check.kernel_ms); leg (b)'s two runs by host clock;
+              leg (c)'s wall and info bits/s sent by host clock, each DSP
+              block's and the decoder block's work() by host clock, and the
+              decoder's kernel on its batches by CUDA events; both loop
+              kernels and their plain versions by CUDA events on the
+              16,384-sample stream, beside their HBM bound
+              (tools/_timing.py loop_bound_ms, 16 bytes a sample) and
+              their serial floor (phase 2's chain, at the SM clock each
+              held back to back);
               the chain path's stages by CUDA events (block AGC, CFO, mix,
               the tracker in all and a block, V&V) in its three settings,
               the chain's samples a second by timing block (256-8,192, on
@@ -176,7 +221,8 @@ iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
 carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
 minsum_wavefronts, exact_minsum_wavefronts; a register tier reads no table
 and no -rx) at one a clock an SM, at the SM clock the kernel holds.
-The line before the last is the kernels' JSON record, the one before it the
+The two loop kernels' records carry serial_ms, their serial floor. The
+line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
 
@@ -214,6 +260,10 @@ SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_large": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_exact": "gr_ldpc_ece535a_torch/csrc/bp_exact.cu"}
 _PALLAS = "gr_ldpc_ece535a_tpu/ops/pallas_bp.py"
+LOOP_SOURCE = "gr_ldpc_ece535a_torch/csrc/dsp_loops.cu"
+# no TPU kernel: the JAX package runs both loops as lax.scan recurrences
+LOOP_REPLACES = {"agc_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:113",
+                 "costas_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:130"}
 REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
             "bp_sumproduct_large": f"{_PALLAS}:584",
             "bp_minsum_large": f"{_PALLAS}:668",
@@ -319,7 +369,8 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.ops import (
         awgn, bpsk_map, decode_minsum, decode_sumproduct, encode_bits,
         encode_to_symbols, make_decoder, pack_bits, syndrome_ok)
-    from gr_ldpc_ece535a_torch.ops import cuda_bp, cuda_study, cuda_study_ms, dsp
+    from gr_ldpc_ece535a_torch.ops import (cuda_bp, cuda_dsp, cuda_study,
+                                           cuda_study_ms, dsp)
     from gr_ldpc_ece535a_torch.ops._build import build, load_library
     from gr_ldpc_ece535a_torch.ops.layout import (
         check_major_tables, edge_slots, wmajor_tables)
@@ -327,7 +378,8 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
     from gr_ldpc_ece535a_torch.tools import (ablate_pallas, bench_chain,
-                                             chain_check, fast_kernel_proto,
+                                             chain_check, dsp_loops_check,
+                                             fast_kernel_proto,
                                              flowgraph_check, proto_r2,
                                              proto_r3, proto_r3b, proto_r3c,
                                              proto_r4, proto_r4b,
@@ -335,9 +387,10 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.tools._timing import (bins, bound_ms,
                                                      make_inputs, time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
-        by_pipe, exact_floor_ms, exact_minsum_wavefronts, exact_mix,
-        minsum_wavefronts, probe_sass, sass_dump, sass_functions, shipped_phi,
-        under_load, wavefront_ms)
+        LOOP_LATENCY, by_pipe, exact_floor_ms, exact_minsum_wavefronts,
+        exact_mix, loop_chain, minsum_wavefronts, probe_sass, sass_dump,
+        sass_functions, sass_instructions, shipped_phi, under_load,
+        wavefront_ms)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -364,6 +417,7 @@ def main() -> int:
             exact = re.search(r"bp_exact_kernelILi(\d+)ELb(\d)ELi\d+ELi(\d+)E",
                               line)
             pairs = re.search(r"bp_minsum_pairsILi(\d+)E", line)
+            loop = re.search(r"\d+(agc_loop|costas_loop)_kernel", line)
             study = (cuda_study.instance_of(line)
                      or cuda_study_ms.instance_of(line))
             if "Compiling" in line:
@@ -372,6 +426,8 @@ def main() -> int:
                 name, notes = None, []
                 if pairs:
                     name = f"bp_minsum_pairs<WR={pairs[1]}>"
+                elif loop:
+                    name = loop[1]
                 elif kernel:
                     name = (f"bp_kernel<WR={kernel[1]}, "
                             f"{'sumproduct' if kernel[2] == '1' else 'minsum'}, "
@@ -409,6 +465,22 @@ def main() -> int:
         if not sass[name] > sass[sib]:
             raise AssertionError(f"{name}: no more code than {sib}; the "
                                  f"unroll is not in the kernel")
+    # each loop kernel's recurrence: the least dependent chain a sample over
+    # the paths through its loop (its serial floor, phase 5)
+    chains = {}
+    for fn, ins in sass_instructions(sass_dump(built["dsp_loops"][0])).items():
+        for name in cuda_dsp.KERNELS:
+            if f"{name}_kernel" in fn:
+                chains[name] = loop_chain(ins)
+                log(f"[build] {name}: recurrence loop {chains[name]['body']} "
+                    f"instructions at {chains[name]['head']:#x}-"
+                    f"{chains[name]['tail']:#x}, {chains[name]['paths']} paths;"
+                    f" the least dependent chain a sample "
+                    f"{chains[name]['links']} instructions, "
+                    f"{chains[name]['cycles']} cycles at {LOOP_LATENCY} a "
+                    f"link; {regs.get(name)} registers")
+    if set(chains) != set(cuda_dsp.KERNELS):
+        raise AssertionError(f"loop kernels in the SASS: {sorted(chains)}")
     # the SPA kernels' log tanh(x/2): its SASS by pipe; its MUFU count sets
     # their SFU floor (sfu_ms, phase 5)
     phi_ops = shipped_phi(built["bp_wmajor"][0])
@@ -948,6 +1020,13 @@ def main() -> int:
             f"codewords {fer:.6f}")
     del shipped, sent4
 
+    # the streaming blocks' loop kernels against their plain versions on the
+    # card: output and state bit for bit, and uneven pieces, each cut
+    # inside a tile, the one call's
+    loop_res = dsp_loops_check.check(dev, log=log)
+    for name, r in loop_res.items():
+        max_err[name] = r["max_abs_err"]
+
     # -- 4. paths -----------------------------------------------------------
     def drive(path, fn, want, launches=(cuda_bp.LAUNCHES,)):
         for counter in launches:
@@ -1057,19 +1136,34 @@ def main() -> int:
     # the flowgraph path: the image loopback through the port's blocks on
     # the card, both methods (leg a); then the decoder block's sync machine
     # on a recorded stream, on the card and on the CPU, held to each other
-    # (leg b)
+    # (leg b); then examples/example4_full.yaml, the receive DSP chain into
+    # the decoder block (leg c), and the sync prototypes example2/3.yaml on
+    # the card and on the CPU
     def flowgraph_legs():
         loop = {m: flowgraph_check.image_loopback(m, dev, log=log)
                 for m in flowgraph_check.KERNEL}
         link = flowgraph_check.make_link(flowgraph_check.FRAMES, dev)
         acq = {m: flowgraph_check.acquisition(m, dev, link=link, log=log)
                for m in flowgraph_check.KERNEL}
-        return loop, acq
+        chain = {m: flowgraph_check.dsp_chain(m, dev, log=log)
+                 for m in flowgraph_check.KERNEL}
+        for d in (dev, "cpu"):
+            flowgraph_check.sync_prototypes(d, log=log)
+        return loop, acq, chain
 
-    (fg_loop, fg_acq), fg_counts = drive(
-        "flowgraph", flowgraph_legs, ("bp_minsum", "bp_sumproduct"))
+    (fg_loop, fg_acq, fg_chain), fg_counts = drive(
+        "flowgraph", flowgraph_legs, ("bp_minsum", "bp_sumproduct",
+                                      *cuda_dsp.KERNELS),
+        (cuda_bp.LAUNCHES, cuda_dsp.LAUNCHES))
     for name in ("bp_minsum", "bp_sumproduct"):    # launches on three paths
         fwd_counts[name] += fg_counts[name]
+    # the loop kernels at the shapes leg (c) gave them, each chunk the AGC
+    # and Costas blocks got against the plain versions (these launches come
+    # after the path's counts were read)
+    for r in fg_chain.values():
+        for name, rec in dsp_loops_check.check_main_path(
+                r.pop("loops"), dev, log=log).items():
+            max_err[name] = max(max_err[name], rec["max_abs_err"])
 
     # the receive chain: raw sample streams through rx_chain_pairs in three
     # settings, each into the receiver with both methods; each held to the
@@ -1482,6 +1576,22 @@ def main() -> int:
             f"CUDA events ({100 * k_ms / 1e3 / r['wall_s']:.2f}% of the "
             f"wall) [{card}]")
     del fg_loop
+    # leg (c): its wall and info bits/s by host clock, each block's work()
+    # by host clock, its decoder's kernel alone on its batches by CUDA events
+    for m, r in fg_chain.items():
+        k_ms = flowgraph_check.kernel_ms(r["decode"], r["batches"])
+        log(f"[times] flowgraph dsp chain (example4_full.yaml) "
+            f"{flowgraph_check.KERNEL[m]}, a {r['side']}x{r['side']} BMP x "
+            f"{flowgraph_check.REPEATS} ({r['sent_frames']} frames sent), "
+            f"{r['images']} images written: {r['wall_s'] * 1e3:.4f} ms host "
+            f"clock ({r['info_bit_s']:.4e} info bit/s sent); work() by block, "
+            f"host clock: " + ", ".join(
+                f"{k} {v * 1e3:.4f} ms ({100 * v / r['wall_s']:.1f}%)"
+                for k, v in r["work_s"].items())
+            + f"; the decoder's kernel alone on its {len(r['batches'])} "
+            f"batches ({sum(len(b) for b in r['batches'])} frames) "
+            f"{k_ms:.4f} ms by CUDA events [{card}]")
+    del fg_chain
     for m, r in fg_acq.items():
         log(f"[times] flowgraph acquisition {flowgraph_check.KERNEL[m]}: "
             f"{r['frames_emitted']} frames emitted, {r['device_s'] * 1e3:.4f}"
@@ -1526,6 +1636,30 @@ def main() -> int:
             f"{sp_['min'] * 1e3:.4f}, max {sp_['max'] * 1e3:.4f}), "
             f"{res.n_frames * code.K / sp_['median']:.4e} info bit/s [{card}]")
     del ch_xp, app_xp
+    # the streaming blocks' loop kernels: CUDA events beside their plain
+    # versions, their HBM bound and their serial floor (phase 2's chain at
+    # the SM clock each holds back to back)
+    x_loop = dsp_loops_check.impaired_stream(device=dev)
+    loop_times = dsp_loops_check.times(x_loop, log=log)
+    agc_out = dsp.agc(x_loop, **dsp_loops_check.AGC)[0]
+    for name, fn in (("agc_loop", lambda: dsp.agc(x_loop,
+                                                  **dsp_loops_check.AGC)),
+                     ("costas_loop", lambda: dsp.costas_loop(
+                         agc_out, **dsp_loops_check.COSTAS))):
+        call_ms, samples = under_load(fn, 2.0)
+        mhz = float(np.median([c for c, _, _ in samples])) if samples else \
+            float("nan")
+        t = loop_times[name]
+        n = x_loop.shape[0]
+        t["serial_ms"] = n * chains[name]["cycles"] / (mhz * 1e3)
+        log(f"[times] {name} {n} samples: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms (CUDA events); back to back "
+            f"{call_ms:.4f} ms a call at SM clock {mhz:.0f} MHz, "
+            f"{t['ms'] * mhz * 1e3 / n:.1f} cycles a sample against the "
+            f"chain's {chains[name]['cycles']} ({chains[name]['links']} "
+            f"dependent instructions); serial floor {t['serial_ms']:.4f} ms, "
+            f"HBM bound {t['bound_ms']:.6f} ms ({t['bound_by']}) [{card}]")
+    del x_loop, agc_out
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""
@@ -1558,7 +1692,16 @@ def main() -> int:
         for name in cuda_study.INSTANCES] + [
         kernel_record(name, STUDY_MS_SOURCE, STUDY_MS_REPLACES[name],
                       ms_counts[name], "minsum")
-        for name in cuda_study_ms.INSTANCES]}
+        for name in cuda_study_ms.INSTANCES] + [
+        {"name": name, "route": "cuda", "source": LOOP_SOURCE,
+         "replaces": LOOP_REPLACES[name], "launches": fg_counts[name],
+         "max_abs_err": max_err[name], "ms": loop_times[name]["ms"],
+         "plain_ms": loop_times[name]["plain_ms"],
+         "bound_ms": loop_times[name]["bound_ms"],
+         "bound_by": loop_times[name]["bound_by"],
+         "library_ms": None,   # no PyTorch call runs a nonlinear feedback loop
+         "serial_ms": loop_times[name]["serial_ms"]}
+        for name in cuda_dsp.KERNELS]}
     log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
     print(json.dumps(record))

@@ -16,9 +16,8 @@ runtime. Here the same role is a YAML document::
 
 Each entry in ``connections`` is a chain (2+ block names); fan-out is
 expressed by naming the same upstream block in several chains. The ``type``
-registry covers every block of the port's ``blocks/``; the seven types of
-the JAX package's receive DSP chain (``NOT_PORTED``) are not in the port
-yet, and a document that names one raises ``ValueError``.
+registry covers every block of the port's ``blocks/``, the same types as
+the JAX package's.
 ``load_flowgraph(..., device=...)`` gives its device to every block whose
 constructor takes one, unless the document names one.
 """
@@ -32,12 +31,13 @@ from typing import Any
 import numpy as np
 
 from . import channel as _channel
+from . import dsp as _dsp
 from . import io as _io
 from . import ldpc as _ldpc
 from . import viz as _viz
 from .base import Block, FlowGraph
 
-__all__ = ["BLOCK_REGISTRY", "NOT_PORTED", "load_flowgraph", "run_flowgraph"]
+__all__ = ["BLOCK_REGISTRY", "load_flowgraph", "run_flowgraph"]
 
 _DTYPES = {
     "byte": np.uint8, "uint8": np.uint8,
@@ -60,24 +60,23 @@ BLOCK_REGISTRY: dict[str, type[Block]] = {
     "tcp_source": _io.TcpSource,
     "channel_model": _channel.ChannelModelBlock,
     "awgn": _channel.AwgnBlock,
+    "bpsk_mod": _dsp.BpskModBlock,
+    "pulse_shape": _dsp.PulseShapeBlock,
+    "agc": _dsp.AgcBlock2,
+    "costas_loop": _dsp.CostasLoopBlock,
+    "symbol_sync": _dsp.SymbolSyncBlock,
+    "fll_band_edge": _dsp.FreqRecoveryBlock,
+    "pfb_clock_sync": _dsp.PfbClockSyncBlock,
     "ldpc_encoder": _ldpc.LdpcEncoderBlock,
     "ldpc_decoder": _ldpc.LdpcDecoderBlock,
     "plot_sink": _viz.PlotSink,
 }
-
-# the JAX package's blocks/dsp.py types, still to port
-NOT_PORTED = ("bpsk_mod", "pulse_shape", "agc", "costas_loop", "symbol_sync",
-              "fll_band_edge", "pfb_clock_sync")
 
 
 def _build_block(name: str, spec: dict[str, Any], base_dir: Path,
                  device) -> Block:
     spec = dict(spec)
     btype = spec.pop("type", None)
-    if btype in NOT_PORTED:
-        raise ValueError(
-            f"block {name!r}: type {btype!r} (the receive DSP chain) is not "
-            f"in the PyTorch port yet")
     if btype not in BLOCK_REGISTRY:
         raise ValueError(
             f"block {name!r}: unknown type {btype!r}; "

@@ -1,7 +1,9 @@
 """Headless visualization sinks: the analog of the Qt GUI sinks.
 
 The port's numpy and matplotlib copy of ``gr_ldpc_ece535a_tpu/blocks/viz.py``
-(matplotlib is imported when a plot renders, not before).
+(matplotlib is imported when a plot renders, not before). Where matplotlib
+is not installed, the sink renders nothing: it says so once and the
+flowgraph runs on (the JAX sink raises ImportError there).
 
 The reference's example flowgraphs observe the live signal through GNU Radio
 Qt GUI sinks — time, histogram, constellation, and frequency displays
@@ -83,6 +85,7 @@ class PlotSink(Block):
         self.samp_rate = float(samp_rate)
         self.refresh_items = refresh_items
         self.n_renders = 0
+        self.skipped = False     # a render was skipped: no matplotlib
         self._buf = np.empty(0, self.in_dtype)
         self._since_render = 0
 
@@ -109,8 +112,15 @@ class PlotSink(Block):
             return x
         return x.astype(np.float32)
 
-    def render(self) -> Path:
-        import matplotlib
+    def render(self) -> Optional[Path]:
+        try:
+            import matplotlib
+        except ImportError:
+            if not self.skipped:
+                print(f"{self.name}: matplotlib is not installed; "
+                      f"{self.path} is not rendered")
+            self.skipped = True
+            return None
         matplotlib.use("Agg", force=False)
         import matplotlib.pyplot as plt
 

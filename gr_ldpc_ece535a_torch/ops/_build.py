@@ -22,7 +22,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms")}
+           for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms",
+                        "dsp_loops")}
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as it does in the plain PyTorch versions. No --use_fast_math: the
@@ -145,6 +146,15 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                # large, sumproduct, Wr, smem bytes, int* blocks, int* threads
                "bp_occupancy": [i, i, i, i, p, p],
                "bp_error_string": [i]}
+    elif name == "dsp_loops":
+        q = ctypes.c_longlong
+        fns = {"dsp_agc_loop": [p, p, q,      # x, y (n,) complex64, n
+                                f, f,         # rate, reference
+                                p, p, p],     # g0, g out (f32 0-d), stream
+               "dsp_costas_loop": [p, p, q,   # x, y (n,) complex64, n
+                                   f, f,      # alpha, beta
+                                   p, p, p],  # (phase, freq) in, out, stream
+               "dsp_error_string": [i]}
     elif name in ("bp_study", "bp_study_ms"):
         fns = {f"{name}_decode": [
                    i,           # instance (bp_study_find's index)

@@ -18,8 +18,11 @@ purpose:
 - convolutions run in float64 and return float32, so no backend takes
   TF32 for them.
 
-Still to port: the per-sample recurrences ``agc`` and ``costas_loop``,
-which only the streaming blocks of ``blocks/dsp.py`` call.
+The per-sample recurrences ``agc`` and ``costas_loop``, which only the
+streaming blocks of ``blocks/dsp.py`` call, run on the card as the
+hand-written kernels of ``csrc/dsp_loops.cu`` (``ops/cuda_dsp.py``) and on
+the CPU as their plain versions here, per-sample loops in float32 in JAX's
+order of operations.
 """
 
 from __future__ import annotations
@@ -31,11 +34,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import cuda_dsp
+
 __all__ = [
     "rrc_taps",
     "fir_filter",
     "pulse_shape",
+    "agc",
+    "agc_plain",
     "block_agc",
+    "costas_gains",
+    "costas_loop",
+    "costas_loop_plain",
     "symbol_sync",
     "polyphase_rrc_banks",
     "fractional_resample",
@@ -199,6 +209,135 @@ def fractional_resample(x: torch.Tensor, ratio: float, nfilts: int = 128,
     taps = _on(_interp_bank, (nfilts, ntaps_per), dev)[
         torch.from_numpy(pidx).to(dev)]
     return (win * taps).sum(dim=1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the per-sample feedback loops of the streaming blocks
+# ---------------------------------------------------------------------------
+
+def _f32(v, device) -> torch.Tensor:
+    """A float32 0-d tensor of ``v`` (a number or a tensor) on ``device``."""
+    return torch.as_tensor(v, device=device).to(torch.float32).reshape(())
+
+
+def _loop_input(x: torch.Tensor) -> torch.Tensor:
+    if not x.is_complex() or x.dim() != 1:
+        raise ValueError("x must be a 1-D complex tensor")
+    return x.to(torch.complex64).contiguous()
+
+
+def agc(x: torch.Tensor, rate: float = 1e-2, reference: float = 1.0,
+        gain0=1.0):
+    """agc_cc-style automatic gain control: out = x*g; g += rate*(ref-|out|).
+
+    Returns (out (n,) complex64, final gain as a float32 0-d tensor), so a
+    stream cut into chunks (each from the last one's gain) gives the output
+    of one call, bit for bit. ``gain0`` is a number or a 0-d tensor, taken
+    as float32, and so are ``rate`` and ``reference``. On a CUDA tensor the
+    ``agc_loop`` kernel, on a CPU tensor ``agc_plain``.
+    """
+    x = _loop_input(x)
+    g0 = _f32(gain0, x.device)
+    if x.device.type == "cpu":
+        return agc_plain(x, rate, reference, g0)
+    return cuda_dsp.agc_loop(x, float(np.float32(rate)),
+                             float(np.float32(reference)), g0)
+
+
+def agc_plain(x: torch.Tensor, rate: float, reference: float,
+              gain0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``agc``: a loop over the samples of float32
+    torch operations on x's device, one rounding each, in JAX's order
+    (``gr_ldpc_ece535a_tpu/ops/dsp.py:121-124``).
+
+    x*g is JAX's complex product with g + 0i, (a*g - b*0, a*0 + b*g): for
+    finite samples the same as (a*g, b*g), but an infinite component makes
+    the other NaN, as in JAX. |y| is ``torch.hypot``, which is torch's
+    complex abs on the card; XLA's complex abs differs from it in the last
+    bits, and where one component is infinite and the other NaN it gives
+    NaN where hypot gives inf (the gain then goes to -inf, not NaN).
+    """
+    dev = x.device
+    rate_, ref, zero = (_f32(np.float32(v), dev) for v in (rate, reference,
+                                                           0.0))
+    g = _f32(gain0, dev)
+    xp = torch.view_as_real(x)
+    ys = []
+    for a, b in zip(xp[:, 0].unbind(0), xp[:, 1].unbind(0)):
+        yr = a * g - b * zero
+        yi = a * zero + b * g
+        ys.append(torch.stack([yr, yi]))
+        g = g + rate_ * (ref - torch.hypot(yr, yi))
+    y = (torch.stack(ys) if ys else xp.new_zeros((0, 2)))
+    return torch.view_as_complex(y.contiguous()), g
+
+
+def costas_gains(loop_bw: float) -> tuple[float, float]:
+    """(alpha, beta) of the critically damped loop, formed in float64 and
+    taken as float32 (``gr_ldpc_ece535a_tpu/ops/dsp.py:139-142``)."""
+    damping = math.sqrt(2.0) / 2.0
+    denom = 1.0 + 2.0 * damping * loop_bw + loop_bw * loop_bw
+    return (float(np.float32(4 * damping * loop_bw / denom)),
+            float(np.float32(4 * loop_bw * loop_bw / denom)))
+
+
+def costas_loop(x: torch.Tensor, loop_bw: float = 6.28 / 100.0,
+                phase0=0.0, freq0=0.0):
+    """2nd-order BPSK Costas loop (GR costas_loop_cc order=2 equivalent).
+
+    error = Re(y)*Im(y), clipped to +-1; the critically damped gains of
+    ``costas_gains(loop_bw)``; the frequency clipped to +-1 rad/sample, the
+    phase wrapped to [-pi, pi). Returns (y (n,) complex64, (final phase,
+    final freq) as float32 0-d tensors); a stream cut into chunks (each
+    from the last one's state) gives the output of one call, bit for bit.
+    It converges to the carrier up to the 180-degree ambiguity the
+    decoder's inverted lock resolves. On a CUDA tensor the ``costas_loop``
+    kernel, on a CPU tensor ``costas_loop_plain``.
+    """
+    x = _loop_input(x)
+    alpha, beta = costas_gains(loop_bw)
+    state0 = torch.stack([_f32(phase0, x.device), _f32(freq0, x.device)])
+    if x.device.type == "cpu":
+        return costas_loop_plain(x, alpha, beta, state0)
+    y, st = cuda_dsp.costas_loop(x, alpha, beta, state0)
+    return y, (st[0], st[1])
+
+
+def costas_loop_plain(x: torch.Tensor, alpha: float, beta: float,
+                      state0) -> tuple[torch.Tensor, tuple]:
+    """The plain version of ``costas_loop`` with its float32 gains, from
+    ``state0`` = (phase, freq): a loop over the samples of float32 torch
+    operations on x's device, one rounding each, in JAX's order
+    (``gr_ldpc_ece535a_tpu/ops/dsp.py:146-153``):
+
+        y = x * (cos(phase) + i sin(-phase))   (the sign folded in, exact)
+        err = clip(Re(y) * Im(y), -1, 1)
+        freq = clip(freq + beta*err, -1, 1)
+        phase = (phase + freq) + alpha*err
+        phase = mod(phase + pi, 2 pi) - pi
+
+    The clips are ``torch.clamp``, which keeps NaN as ``jnp.clip`` does;
+    the floored mod is ``torch.remainder``, fmod with the sign fix, which
+    is ``jnp.mod``'s (not a - b*floor(a/b)). Sine and cosine are torch's,
+    which differ from XLA's in the last bits.
+    """
+    dev = x.device
+    alpha_, beta_, pi, two_pi = (_f32(np.float32(v), dev) for v in (
+        alpha, beta, math.pi, TWO_PI))
+    phase, freq = (_f32(v, dev) for v in state0)
+    xp = torch.view_as_real(x)
+    ys = []
+    for a, b in zip(xp[:, 0].unbind(0), xp[:, 1].unbind(0)):
+        c, s = torch.cos(phase), torch.sin(phase)
+        yr = a * c + b * s
+        yi = b * c - a * s
+        ys.append(torch.stack([yr, yi]))
+        err = torch.clamp(yr * yi, -1.0, 1.0)
+        freq = torch.clamp(freq + beta_ * err, -1.0, 1.0)
+        phase = (phase + freq) + alpha_ * err
+        phase = torch.remainder(phase + pi, two_pi) - pi
+    y = (torch.stack(ys) if ys else xp.new_zeros((0, 2)))
+    return torch.view_as_complex(y.contiguous()), (phase, freq)
 
 
 # ---------------------------------------------------------------------------

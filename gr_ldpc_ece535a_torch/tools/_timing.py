@@ -22,8 +22,9 @@ from ..ops.cuda_study import study_decode, study_plain
 from ..ops.cuda_study_ms import study_ms_decode, study_ms_plain
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "bins", "bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
-           "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE"]
+           "bins", "bound_ms", "loop_bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
+           "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE",
+           "LOOP_BYTES_PER_SAMPLE", "OPS_PER_SAMPLE"]
 
 TIMED_LAUNCHES = 20
 WARMUP = 3
@@ -45,6 +46,17 @@ F32_OPS_S = 67e12
 #   sum-product  |x|, sign, tanh, log, clamp, the row sum, the sign product,
 #                the exclusion, tanh, log, two products (check); 2 (variable)
 OPS_PER_EDGE = {"minsum": 10, "sumproduct": 14}
+# the streaming blocks' loop kernels (csrc/dsp_loops.cu): a complex64 sample
+# read and one written, and the f32 operations a sample, each counted as one
+# (a sine, a cosine, a square root, an fmod too):
+#   agc_loop     the complex product with g + 0i (4 products, 2 sums), |y|
+#                (2 products, a sum, a square root), ref - |y|, rate*(..),
+#                g + (..): 13
+#   costas_loop  cos, sin, the complex product (4, 2), Re*Im, its clip (2),
+#                beta*err, its sum and clip (2), two sums and alpha*err,
+#                + pi, fmod, the sign fix, - pi: 22
+LOOP_BYTES_PER_SAMPLE = 16
+OPS_PER_SAMPLE = {"agc_loop": 13, "costas_loop": 22}
 # a study kind -> (its instances' wrapper, their plain version)
 STUDY_FNS = {"minsum": (study_ms_decode, study_ms_plain),
              "sumprod": (study_decode, study_plain)}
@@ -88,6 +100,18 @@ def bound_ms(code: LdpcCode, frames: int, iterations: int,
     by_bytes = frames * code.N * (4 + 1) / HBM_BYTES_S * 1e3
     by_ops = (OPS_PER_EDGE[method] * int(code.H.sum()) * frames * iterations
               / F32_OPS_S * 1e3)
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def loop_bound_ms(kernel: str, samples: int) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations") the card could take for
+    ``samples`` of a loop kernel: LOOP_BYTES_PER_SAMPLE over HBM_BYTES_S
+    against OPS_PER_SAMPLE[kernel] over F32_OPS_S. Neither counts that the
+    loop is serial: its serial floor is tools/issue_model.py's
+    ``loop_chain``."""
+    by_bytes = samples * LOOP_BYTES_PER_SAMPLE / HBM_BYTES_S * 1e3
+    by_ops = samples * OPS_PER_SAMPLE[kernel] / F32_OPS_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
 

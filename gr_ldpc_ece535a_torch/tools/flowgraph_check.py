@@ -2,9 +2,10 @@
 machine through the port's blocks, the tile BP kernels against their plain
 versions.
 
-    python -m gr_ldpc_ece535a_torch.tools.flowgraph_check [--device cpu] [--side 64] [--frames 8192]
+    python -m gr_ldpc_ece535a_torch.tools.flowgraph_check [--device cpu] [--side 64] [--frames 8192] [--dsp-side 16]
 
-Two legs, as ``chip_smoke.py``'s ``flowgraph`` path drives them:
+Three legs, as ``chip_smoke.py``'s ``flowgraph`` path drives them, and the
+LDPC-free sync prototypes:
 
 ``image_loopback``  a ``side`` x ``side`` RGB image drawn from seed 0, made
     into a BMP by ``utils.make_bmp``, padded to whole 4-byte frames:
@@ -29,12 +30,37 @@ Two legs, as ``chip_smoke.py``'s ``flowgraph`` path drives them:
     bytes, and sum-product keep the precise early-exit contract on the
     emitted frames: at most 0.1% differ, each where neither decision
     satisfies H or only the kernel's does.
+
+``dsp_chain``  examples/example4_full.yaml through ``load_flowgraph(...,
+    device)``: the reference's flagship receiver, example4.grc stage for
+    stage (encoder, RRC at 2 samples a symbol, a channel with a 0.01
+    cycles/sample carrier offset, phase 2.5 and 50 ppm clock drift, AGC,
+    the FLL role, the polyphase clock tracker, the Costas loop, the
+    decoder, the image sink and two plot sinks). Its source is the RGB BMP
+    of seed 0 (``make_image``) at DSP_SIDES[method] (128 x 128 for method
+    0, the YAML's own min-sum; 64 x 64 for method 1, sum-product), sent
+    three times (the YAML's ``repeats``); the sinks write to a temporary
+    directory (the plot sinks render only where matplotlib is installed).
+    The decoder must lock, at least one image written must equal the BMP
+    byte for byte, and on a card each of the loop kernels and the method's
+    BP kernel must launch. It times the run by host clock, each block's
+    work() calls by host clock, keeps the decoder's batches for
+    ``kernel_ms``, and keeps the chunks the AGC and Costas blocks got
+    (``dsp_loops_check.LoopCapture``) for ``check_main_path``. At 128 x
+    128 the tracker alone, about 290 segments of 16,384 samples in
+    64-symbol blocks, takes most of the wall.
+
+``sync_prototypes``  examples/example2.yaml and example3.yaml (512 random
+    bytes, no file) on ``device``, at tests/test_graphcfg.py's bars: over
+    3,000 symbols out, and after the loops settle the constellation on the
+    real axis.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import io
 import math
 import tempfile
@@ -46,14 +72,16 @@ import torch
 
 from ..blocks import (AwgnBlock, ChannelModelBlock, FileSource, FlowGraph,
                       ImageSink, LdpcDecoderBlock, LdpcEncoderBlock,
-                      VectorSink, VectorSource)
-from ..blocks.ldpc import STATE_IN_SYNC_INVERTED
+                      VectorSink, VectorSource, load_flowgraph, run_flowgraph)
+from ..blocks.ldpc import STATE_IN_SYNC_INVERTED, STATE_OUT_OF_SYNC
 from ..codes import get_code
-from ..ops import cuda_bp
+from ..ops import cuda_bp, cuda_dsp
 from ..utils import make_bmp
+from .dsp_loops_check import LoopCapture, check_main_path
 
-__all__ = ["image_loopback", "acquisition", "kernel_ms", "make_image", "SIDE",
-           "FRAMES", "KERNEL", "EE_MAX_MISMATCH"]
+__all__ = ["image_loopback", "acquisition", "dsp_chain", "sync_prototypes",
+           "kernel_ms", "make_image", "SIDE", "FRAMES", "KERNEL",
+           "EE_MAX_MISMATCH", "DSP_SIDES", "EXAMPLES"]
 
 SIDE = 512                     # a 512 x 512 RGB image: 786,486 BMP bytes
 REPEATS = 3
@@ -65,6 +93,9 @@ BURST = 12                     # random-symbol frames: more than max_errors
 ITERATIONS = 5
 EE_MAX_MISMATCH = 0.001        # the precise early-exit contract
 KERNEL = {0: "bp_minsum", 1: "bp_sumproduct"}
+EXAMPLES = Path(__file__).resolve().parents[2] / "examples"
+DSP_SIDES = {0: 128, 1: 64}    # leg (c): about 4.7 M and 1.2 M samples
+CHAIN_BLOCKS = ("tx", "chan", "agc", "fll", "timing", "costas", "dec")
 
 
 def make_image(side: int = SIDE) -> bytes:
@@ -293,6 +324,117 @@ def acquisition(method: int, device, frames: int = FRAMES, link=None,
     return res
 
 
+def _launch_counts() -> dict:
+    return {**cuda_bp.LAUNCHES, **cuda_dsp.LAUNCHES}
+
+
+def dsp_chain(method: int, device, side: int | None = None,
+              log=print) -> dict:
+    """Leg (c): examples/example4_full.yaml once; raise on a miss; return
+    its numbers."""
+    device = torch.device(device)
+    side = DSP_SIDES[method] if side is None else side
+    code = get_code("block_32_64")
+    bmp = make_image(side)
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "image.bmp").write_bytes(bmp)
+        overrides = {
+            "src": {"path": str(tmp / "image.bmp")},
+            "dec": {"method": method, "verbose": True},
+            "sink": {"out_path": str(tmp / "result.bmp"),
+                     "every_image": True, "verbose": False},
+            "const": {"path": str(tmp / "const.png")},
+            "spec": {"path": str(tmp / "psd.png")}}
+        logbuf = io.StringIO()
+        with contextlib.redirect_stdout(logbuf):
+            fg, blocks = load_flowgraph(EXAMPLES / "example4_full.yaml",
+                                        overrides, device=device)
+        dec, sink = blocks["dec"], blocks["sink"]
+        dec._dec = decode = _Keep(dec._dec)
+        timed = {}
+        for name in CHAIN_BLOCKS:
+            blocks[name].work = timed[name] = _Timed(blocks[name].work)
+        captures = [LoopCapture(blocks[name]) for name in ("agc", "costas")]
+        for cap in captures:
+            cap.block.work = cap
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(logbuf):
+            fg.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        images = [tmp / f"result_{i + 1}.bmp"
+                  for i in range(sink.images_written)]
+        equal = [p.read_bytes() == bmp for p in images]
+        # the plot sinks render only where matplotlib is installed
+        plots = (all((tmp / f).exists() for f in ("const.png", "psd.png"))
+                 if importlib.util.find_spec("matplotlib") else None)
+    launches = {k: n - before[k] for k, n in _launch_counts().items()}
+    lines = logbuf.getvalue().splitlines()[1:]            # after the banner
+    res = {"method": method, "side": side, "bmp_bytes": len(bmp),
+           "images": len(images), "equal": equal, "plots": plots,
+           "state": dec.state, "log": lines, "launches": launches,
+           "wall_s": wall_s, "work_s": {k: t.wall_s for k, t in timed.items()},
+           "sent_frames": REPEATS * len(bmp) // (code.K // 8),
+           "info_bit_s": REPEATS * len(bmp) * 8 / wall_s,
+           "decode": decode.fn, "batches": decode.batches,
+           "loops": captures}
+    log(f"[flowgraph] dsp chain (example4_full.yaml), method {method}: a "
+        f"{side}x{side} BMP of {len(bmp)} bytes x {REPEATS} on {device}, "
+        f"{len(images)} images written, equal to the input: {equal}, plots "
+        f"written {plots}, final state {dec.state}, sync log {lines[:6]}"
+        f"{' ...' if len(lines) > 6 else ''} ({len(lines)} lines), launches "
+        f"{ {k: n for k, n in launches.items() if n} }, {wall_s:.3f} s host "
+        f"clock")
+    if dec.state == STATE_OUT_OF_SYNC or not any(
+            line.startswith("IN SYNC") for line in lines):
+        raise AssertionError(f"dsp chain, method {method}: the decoder did "
+                             f"not lock ({dec.state}, {lines})")
+    if not any(equal):
+        raise AssertionError(f"dsp chain, method {method}: no image equal to "
+                             f"the BMP ({len(images)} written)")
+    if plots is False:
+        raise AssertionError(f"dsp chain, method {method}: a plot is missing")
+    if cuda:
+        for name in ("agc_loop", "costas_loop", KERNEL[method]):
+            if launches[name] < 1:
+                raise AssertionError(f"dsp chain, method {method}: {name} "
+                                     f"was not launched")
+    return res
+
+
+def sync_prototypes(device, log=print) -> dict:
+    """examples/example2.yaml and example3.yaml on ``device``, held to
+    tests/test_graphcfg.py's bars; {name: numbers}."""
+    out = {}
+    for name in ("example2.yaml", "example3.yaml"):
+        t0 = time.perf_counter()
+        blocks = run_flowgraph(EXAMPLES / name, device=device)
+        wall_s = time.perf_counter() - t0
+        syms = blocks["sink"].data()
+        settled = syms[len(syms) // 2:]
+        scale = float(np.mean(np.abs(settled.real))) if len(settled) else 0.0
+        s = settled.real / scale if scale else settled.real
+        r = {"symbols": len(syms), "scale": scale,
+             "near_unit": float(np.mean(np.abs(np.abs(s) - 1.0) < 0.5)),
+             "iq_ratio": float(np.mean(settled.real ** 2)
+                               / max(np.mean(settled.imag ** 2), 1e-30)),
+             "wall_s": wall_s}
+        out[name] = r
+        log(f"[flowgraph] {name} on {torch.device(device)}: {r['symbols']} "
+            f"symbols, settled scale {scale:.4f}, share within 0.5 of +-1 "
+            f"{r['near_unit']:.4f}, I/Q power ratio {r['iq_ratio']:.2f}, "
+            f"{wall_s:.3f} s host clock")
+        if not (r["symbols"] > 3000 and scale > 0.05 and r["near_unit"] > 0.9
+                and r["iq_ratio"] > 5):
+            raise AssertionError(f"{name} on {device}: outside "
+                                 f"tests/test_graphcfg.py's bars: {r}")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -301,6 +443,9 @@ def main(argv=None) -> None:
                     help="image side of the loopback")
     ap.add_argument("--frames", type=int, default=FRAMES,
                     help="frames of the acquisition stream")
+    ap.add_argument("--dsp-side", type=int, default=None,
+                    help="image side of the dsp chain (default: 128 for "
+                         "method 0, 64 for method 1)")
     args = ap.parse_args(argv)
     for m in KERNEL:
         r = image_loopback(m, args.device, args.side)
@@ -314,6 +459,18 @@ def main(argv=None) -> None:
     link = make_link(args.frames, args.device)
     for m in KERNEL:
         acquisition(m, args.device, args.frames, link)
+    for m in KERNEL:
+        r = dsp_chain(m, args.device, args.dsp_side)
+        check_main_path(r["loops"], args.device)
+        if torch.device(args.device).type == "cuda":
+            print(f"[times] dsp chain {KERNEL[m]}: {r['wall_s']:.4f} s host "
+                  f"clock ({r['info_bit_s']:.4e} info bit/s sent); work() by "
+                  f"block " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        r["work_s"].items())
+                  + f" s; the decoder's kernel alone "
+                  f"{kernel_ms(r['decode'], r['batches']):.4f} ms by CUDA "
+                  f"events [{torch.cuda.get_device_name()}]")
+    sync_prototypes(args.device)
 
 
 if __name__ == "__main__":

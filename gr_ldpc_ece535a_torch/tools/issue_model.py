@@ -46,6 +46,19 @@ exact kernel's table route and register tier), and the wavefronts of each
 for the check-major kernel, whose register tier reads no table and no
 -rx).
 
+The streaming blocks' loop kernels (csrc/dsp_loops.cu) are one serial
+recurrence a sample, so their floor is a latency, not a rate: ``loop_chain``
+reads the recurrence loop off a kernel's SASS (the largest loop closed by a
+backward branch that reads and writes shared memory, the tile, and holds
+no barrier), walks every path through its body
+(both ways at each forward branch, into a called subroutine and back, an
+inner loop once), and takes the longest chain of dependent instructions
+from the registers live into the loop to their values at the back edge,
+each instruction counted at LOOP_LATENCY cycles (loads at 0: the sample
+comes from shared memory off the state's chain). The least such chain over
+the paths, times the samples, at the SM clock the kernel held, is the
+loop's serial floor (chip_smoke.py's serial_ms).
+
 A model from static counts and published rates, not a profiler reading
 (ncu does not run where the card is).
 """
@@ -67,7 +80,8 @@ __all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
            "by_pipe", "shipped_phi", "under_load", "probe_sass", "exact_mix",
            "exact_floor_ms", "warp_executions", "issue_ms",
            "minsum_wavefronts", "exact_minsum_wavefronts", "wavefront_ms",
-           "kernel_mix", "MEMORY_OPS", "main"]
+           "kernel_mix", "MEMORY_OPS", "sass_instructions", "loop_chain",
+           "LOOP_LATENCY", "main"]
 
 # opcode (before its first ".") -> pipe, as Nsight Compute groups them: fma
 # takes FP32 add/multiply/multiply-add and integer multiply(-add); alu the
@@ -113,6 +127,130 @@ EXACT_PARTS = ("tanhf", "logf", "division")   # exact_<part>_probe
 _FUNCTION = re.compile(r"\s+Function : (\S+)")
 _INSTR = re.compile(
     r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+# cycles from an instruction's issue to a dependent one's on Hopper's fixed-
+# latency pipes; the special-function unit, conversions and branches take
+# longer, so a chain counted at this rate is a floor
+LOOP_LATENCY = 4
+_SASS_FULL = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_REG = re.compile(r"(?<![A-Za-z0-9_])(U?R\d+|U?P\d+)")
+_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BRA", "BAR", "CALL", "RET",
+            "EXIT", "BSSY", "BSYNC", "WARPSYNC", "NOP", "BPT", "MEMBAR")
+_LOADS = ("LDS", "LDG", "LDL", "LDC", "ULDC", "LD")
+
+
+def sass_instructions(text: str) -> dict[str, list[tuple]]:
+    """``cuobjdump -sass`` output -> {function: [(address, guard, opcode,
+    operands), ...]}: address an int, guard like "@!P0" or "", operands a
+    list of strings."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if m := _FUNCTION.match(line):
+            cur = out.setdefault(m[1], [])
+        elif cur is not None and (m := _SASS_FULL.match(line)):
+            ops = [o.strip() for o in m[4].split(",") if o.strip()]
+            cur.append((int(m[1], 16), (m[2] or "").strip(), m[3], ops))
+    return out
+
+
+def _regs(operand: str) -> list[str]:
+    return _REG.findall(operand)
+
+
+def _dests_sources(guard: str, opcode: str,
+                   ops: list[str]) -> tuple[list[str], list[str]]:
+    """The registers an instruction writes and reads (predicates too; a
+    carry-out or second predicate destination counts as written)."""
+    srcs = _regs(guard)
+    base = opcode.split(".")[0]
+    if base in _NO_DEST or not ops or not _regs(ops[0]) or "[" in ops[0]:
+        return [], srcs + [r for o in ops for r in _regs(o)]
+    n = 1
+    if len(ops) > 1 and (ops[0].startswith(("P", "UP")) or (
+            ops[1].startswith("P") and _regs(ops[1]) == [ops[1]])):
+        n = 2                       # two predicates, or a carry out
+    dests = [r for o in ops[:n] for r in _regs(o)]
+    if ".WIDE" in opcode or ".64" in opcode:
+        dests += [f"R{int(d[1:]) + 1}" for d in dests if d[0] == "R"]
+    return dests, srcs + [r for o in ops[n:] for r in _regs(o)]
+
+
+def _target(ops: list[str]) -> int:
+    return int(ops[-1], 16)
+
+
+def loop_chain(instructions: list[tuple], limit: int = 1 << 20) -> dict:
+    """The serial floor of a recurrence kernel, from its SASS (one
+    function of sass_instructions): {"cycles": the least dependent chain
+    over the paths through the loop at LOOP_LATENCY a link, "links": its
+    instructions, "paths": paths walked, "head", "tail": the loop's
+    addresses, "body": instructions between them}. The loop is the
+    largest one closed by a backward branch whose body loads and stores
+    shared memory and holds no barrier (the tile's staging loops each
+    touch shared memory one way). Raises ValueError if there is none or
+    the walk passes ``limit`` instruction visits."""
+    at = {a: i for i, (a, *_rest) in enumerate(instructions)}
+    loops = []
+    for i, (a, guard, op, ops) in enumerate(instructions):
+        if op.startswith("BRA") and ops and _target(ops) < a:
+            head = at[_target(ops)]
+            kinds = {o.split(".")[0] for _, _, o, _ in
+                     instructions[head:i + 1]}
+            if {"LDS", "STS"} <= kinds and "BAR" not in kinds:
+                loops.append((i + 1 - head, head, i))
+    if not loops:
+        raise ValueError("no recurrence loop (shared memory read and "
+                         "written, no barrier) in this function")
+    _, head, tail = max(loops)
+    best, visits, paths = None, 0, 0
+    # (instruction index, the chain ending in each register, return stack,
+    # registers read before written, registers written)
+    stack = [(head, {}, (), frozenset(), frozenset())]
+    while stack:
+        i, links, ret, live, written = stack.pop()
+        live, written = set(live), set(written)
+        while True:
+            visits += 1
+            if visits > limit:
+                raise ValueError(f"loop_chain: more than {limit} visits")
+            a, guard, op, ops = instructions[i]
+            base = op.split(".")[0]
+            if i == tail and base == "BRA":
+                n = max((links[r] for r in live & written), default=0)
+                paths += 1
+                best = n if best is None else min(best, n)
+                break
+            if base == "RET":
+                i, ret = at[ret[-1]], ret[:-1]
+                continue
+            if base in ("BRA", "CALL") and ops:
+                t = at[_target(ops)]
+                nxt = i + 1
+                if base == "CALL":
+                    ret = ret + (instructions[nxt][0],)
+                    i = t
+                    continue
+                if guard or len(ops) > 1:           # conditional
+                    if _target(ops) > a:            # forward: both ways
+                        stack.append((t, dict(links), ret,
+                                      frozenset(live), frozenset(written)))
+                    i = nxt                         # an inner loop: once
+                    continue
+                i = t
+                continue
+            dests, srcs = _dests_sources(guard, op, ops)
+            live |= {r for r in srcs if r not in written}
+            n = max((links.get(r, 0) for r in srcs), default=0) + (
+                base not in _LOADS)
+            for d in dests:                         # guarded: may keep the old
+                links[d] = max(links.get(d, 0), n) if guard else n
+                written.add(d)
+            i += 1
+    return {"cycles": best * LOOP_LATENCY, "links": best, "paths": paths,
+            "head": instructions[head][0], "tail": instructions[tail][0],
+            "body": tail - head + 1}
 
 
 def sass_functions(text: str) -> dict[str, list[str]]:

@@ -46,6 +46,26 @@ def test_flowgraph_app_runs_example1(tmp_path, capsys):
     assert (tmp_path / "h.png").exists()
 
 
+def test_flowgraph_app_runs_example4_full(tmp_path, capsys):
+    """The reference's flagship receiver, examples/example4_full.yaml, run
+    by the app on the CPU with -p overrides for the BMP and the sinks:
+    examples/test.bmp sent three times, an image written equal to it byte
+    for byte (JAX's blocks on this stream write the same: the first image
+    whole, the second cut by a resync)."""
+    bmp = ROOT / "examples" / "test.bmp"
+    ldpc_flowgraph.main([str(ROOT / "examples" / "example4_full.yaml"),
+                         "-p", f"src.path={bmp}",
+                         "-p", f"sink.out_path={tmp_path / 'result.bmp'}",
+                         "-p", "sink.every_image=true",
+                         "-p", f"const.path={tmp_path / 'const.png'}",
+                         "-p", f"spec.path={tmp_path / 'psd.png'}",
+                         "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "sink: images_written=2" in out
+    assert (tmp_path / "result_1.bmp").read_bytes() == bmp.read_bytes()
+    assert (tmp_path / "const.png").exists() and (tmp_path / "psd.png").exists()
+
+
 def test_flowgraph_app_rejects_a_bad_override():
     with pytest.raises(SystemExit):
         ldpc_flowgraph.main([str(ROOT / "examples" / "example1.yaml"),

@@ -1,7 +1,8 @@
 """The port's YAML flowgraph loader (``gr_ldpc_ece535a_torch/blocks/
 graphcfg.py``): ``tests/test_graphcfg.py``'s cases, the shipped
-``examples/*.yaml`` on in-repo inputs, and the receive DSP chain's types,
-which are not in the port yet and must raise the loader's ValueError."""
+``examples/*.yaml`` on in-repo inputs (every type of each ported, the
+receive DSP chain's seven included), and the LDPC-free sync prototypes
+``example2.yaml`` and ``example3.yaml`` run on the CPU at JAX's bars."""
 
 from pathlib import Path
 
@@ -22,7 +23,6 @@ from gr_ldpc_ece535a_torch.blocks import (
     load_flowgraph,
     run_flowgraph,
 )
-from gr_ldpc_ece535a_torch.blocks.graphcfg import NOT_PORTED
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = sorted((ROOT / "examples").glob("*.yaml"))
@@ -45,11 +45,20 @@ def _write(tmp_path, text, name="g.yaml"):
     return p
 
 
+DSP_TYPES = ("bpsk_mod", "pulse_shape", "agc", "costas_loop", "symbol_sync",
+             "fll_band_edge", "pfb_clock_sync")
+
+
 def test_registry_is_jaxs_but_the_dsp_chain():
-    assert set(BLOCK_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
-    assert not set(BLOCK_REGISTRY) & set(NOT_PORTED)
-    assert {JAX_REGISTRY[t].__module__ for t in NOT_PORTED} == {
-        "gr_ldpc_ece535a_tpu.blocks.dsp"}
+    """Once the registry less the receive DSP chain's types; now the
+    registry is JAX's, those seven types included, each a class of the
+    same name."""
+    assert set(BLOCK_REGISTRY) == set(JAX_REGISTRY)
+    for t, cls in BLOCK_REGISTRY.items():
+        assert cls.__name__ == JAX_REGISTRY[t].__name__, t
+        assert cls.name == JAX_REGISTRY[t].name, t
+    assert {BLOCK_REGISTRY[t].__module__ for t in DSP_TYPES} == {
+        "gr_ldpc_ece535a_torch.blocks.dsp"}
 
 
 def test_load_and_run_loopback(tmp_path):
@@ -173,12 +182,12 @@ def _types(path):
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=[p.name for p in EXAMPLES])
 def test_shipped_example_flowgraphs(path, tmp_path):
-    """Every examples/*.yaml whose types are all ported constructs under the
-    port, its byte file sources read from examples/test.bmp (a complex64
-    source from a symbol file made here); every one that names a type of
-    the receive DSP chain raises ValueError naming that type."""
+    """Every examples/*.yaml constructs under the port with JAX's classes,
+    its byte file sources read from examples/test.bmp (a complex64 source
+    from a symbol file made here); the three that name types of the
+    receive DSP chain (example2, example3, example4_full), which raised
+    ValueError before the chain's blocks were ported, included."""
     types = _types(path)
-    dsp = [t for t in types if t in NOT_PORTED]
     specs = yaml.safe_load(path.read_text())["blocks"]
     overrides = {}
     for name, spec in specs.items():
@@ -189,18 +198,36 @@ def test_shipped_example_flowgraphs(path, tmp_path):
                 overrides[name] = {"path": str(link)}
             else:
                 overrides[name] = {"path": TEST_BMP}
-    if dsp:
-        with pytest.raises(ValueError, match=dsp[0]):
-            load_flowgraph(path, overrides=overrides, device="cpu")
-        return
     fg, blocks = load_flowgraph(path, overrides=overrides, device="cpu")
     assert [type(b).__name__ for b in blocks.values()] == [
         JAX_REGISTRY[t].__name__ for t in types]
 
 
 def test_examples_cover_ported_and_unported_types():
+    """Every type the shipped examples name is ported; three examples name
+    the receive DSP chain's."""
     assert len(EXAMPLES) >= 8
-    assert sum(bool(set(_types(p)) & set(NOT_PORTED)) for p in EXAMPLES) == 3
+    for p in EXAMPLES:
+        assert set(_types(p)) <= set(BLOCK_REGISTRY), p.name
+    assert sum(bool(set(_types(p)) & set(DSP_TYPES)) for p in EXAMPLES) == 3
+
+
+@pytest.mark.parametrize("name", ["example2.yaml", "example3.yaml"])
+def test_example2_example3_run_on_the_cpu(name):
+    """The LDPC-free sync prototypes (the reference's example2/3.grc) stream
+    end to end through the port's blocks on the CPU, at
+    tests/test_graphcfg.py's bars: after AGC and carrier recovery the
+    constellation clusters on the real axis (up to the BPSK ambiguity)."""
+    blocks = run_flowgraph(ROOT / "examples" / name, device="cpu")
+    syms = blocks["sink"].data()
+    assert len(syms) > 3000  # 512 bytes -> 4096 symbols minus sync tails
+    settled = syms[len(syms) // 2:]
+    scale = np.mean(np.abs(settled.real))
+    assert scale > 0.05
+    s = settled.real / scale
+    assert np.mean(np.abs(np.abs(s) - 1.0) < 0.5) > 0.9
+    assert np.mean(settled.real ** 2) > 5 * np.mean(settled.imag ** 2)
+    assert blocks["costas"].device == torch.device("cpu")
 
 
 def test_example1_runs_on_the_cpu(tmp_path, capsys):

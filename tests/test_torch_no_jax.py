@@ -55,7 +55,8 @@ def test_scan_covers_the_port():
             "blocks/ldpc.py", "blocks/viz.py", "blocks/graphcfg.py",
             "apps/ldpc_dump.py", "apps/ldpc_flowgraph.py",
             "apps/ldpc_image_loopback.py", "tools/bench_chain.py",
-            "tools/chain_check.py"} <= names
+            "tools/chain_check.py", "blocks/dsp.py", "ops/cuda_dsp.py",
+            "tools/dsp_loops_check.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))

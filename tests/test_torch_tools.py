@@ -324,3 +324,60 @@ def test_exact_tables_refuse_a_pad_before_a_real_slot(monkeypatch):
             cuda_bp._exact_tables(code, torch.device("cpu"))
     finally:
         cuda_bp._exact_tables.cache_clear()
+
+
+# a recurrence loop as cuobjdump prints one: a fast path (branch taken)
+# and a slow one through a subroutine, inside a tile loop with a barrier
+LOOP_SASS = """
+\tFunction : toy_loop_kernel
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDS.64 R10, [R16] ;
+        /*0030*/                   FMUL R12, R10, R2 ;
+        /*0040*/                   FSETP.GT.AND P0, PT, R12, 1, PT ;
+        /*0050*/              @!P0 BRA 0x90 ;
+        /*0060*/                   FMUL R12, R12, R12 ;
+        /*0070*/                   CALL.REL.NOINC 0x100 ;
+        /*0080*/                   BRA 0x90 ;
+        /*0090*/                   FADD R2, R12, R2 ;
+        /*00a0*/                   STS.64 [R16], R10 ;
+        /*00b0*/                   VIADD R13, R13, 0x1 ;
+        /*00c0*/                   ISETP.GE.AND P1, PT, R13, R30, PT ;
+        /*00d0*/              @!P1 BRA 0x20 ;
+        /*00e0*/              @!P2 BRA 0x10 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/                   FMUL R12, R12, R12 ;
+        /*0110*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def test_loop_chain_takes_the_least_path():
+    """The state R2's chain: FMUL then FADD on the fast path (2 links, 8
+    cycles); the slow path adds two FMULs through the subroutine. The
+    outer loop holds a barrier and is not the recurrence."""
+    ins = issue_model.sass_instructions(LOOP_SASS)["toy_loop_kernel"]
+    assert len(ins) == 18 and ins[5] == (0x50, "@!P0", "BRA", ["0x90"])
+    r = issue_model.loop_chain(ins)
+    assert (r["cycles"], r["links"], r["paths"]) == (
+        2 * issue_model.LOOP_LATENCY, 2, 2)
+    assert (r["head"], r["tail"], r["body"]) == (0x20, 0xd0, 12)
+
+
+def test_loop_chain_reads_destinations():
+    ds = issue_model._dests_sources
+    assert ds("", "FSETP.GT.AND", ["P0", "PT", "|R3|", "1", "PT"]) == (
+        ["P0"], ["R3"])
+    assert ds("", "IADD3", ["R22", "P3", "R8", "UR12", "RZ"]) == (
+        ["R22", "P3"], ["R8", "UR12"])
+    assert ds("@P3", "FFMA", ["R8", "R8", "-1", "RZ"]) == (["R8"],
+                                                          ["P3", "R8"])
+    assert ds("", "LDS.64", ["R12", "[R19]"]) == (["R12", "R13"], ["R19"])
+    assert ds("", "STS.64", ["[R19]", "R8"]) == ([], ["R19", "R8"])
+    assert ds("", "LOP3.LUT", ["P3", "R15", "R21", "0x1f", "RZ", "0xc0",
+                               "!PT"]) == (["P3", "R15"], ["R21"])
+
+
+def test_loop_chain_needs_a_recurrence_loop():
+    ins = issue_model.sass_instructions(LOOP_SASS)["toy_loop_kernel"]
+    with pytest.raises(ValueError, match="no recurrence loop"):
+        issue_model.loop_chain([i for i in ins if i[2] != "STS.64"])

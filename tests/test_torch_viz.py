@@ -114,3 +114,28 @@ def test_flowgraph_stop_failure_does_not_skip_other_flushes(tmp_path):
     with pytest.raises(RuntimeError, match="boom"):
         fg.run()
     _png_ok(tmp_path / "h.png")  # the plot sink still flushed
+
+
+
+@pytest.mark.parametrize("kind", ["time", "histogram", "const", "freq"])
+def test_plot_sink_skips_without_matplotlib(tmp_path, kind, monkeypatch,
+                                            capsys):
+    """Where matplotlib is not installed, each view's sink renders nothing,
+    says so once (refresh renders included), and the flowgraph runs to its
+    end with every item consumed."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(3000) + 1j * rng.standard_normal(3000)
+         ).astype(np.complex64)
+    snk = PlotSink(path=str(tmp_path / f"{kind}.png"), kind=kind,
+                   refresh_items=1000)
+    fg = FlowGraph()
+    fg.connect(VectorSource(x, np.complex64, chunk=700), snk)
+    fg.run()
+    assert snk.skipped and snk.n_renders == 0
+    assert not (tmp_path / f"{kind}.png").exists()
+    assert len(snk._buf) == 3000
+    out = capsys.readouterr().out
+    assert out.count("matplotlib is not installed") == 1
