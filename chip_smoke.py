@@ -91,6 +91,17 @@ Phases, each of which raises on a miss:
                           experiment at 10^6 frames a point, held within
                           binomial bands of the committed JAX curve; and a
                           gen_256_512 sweep on the large-code kernels
+                anchor    tools/anchor.py: that sim_50_100 result against
+                          the reference binary ldpc_lapack's committed run
+                          (results/reference_lapack_run.json), and
+                          run_waterfall("sim_8_16") on ldpc_umfpack's 29
+                          points, 10^5 frames a point, 5 iterations, hard,
+                          bitflip_mp and min-sum, against its run
+                          (reference_umfpack_run.json): at each point the
+                          detected FER inside the 99.9% Clopper-Pearson
+                          band of the 30-frame count, at most 2 points of
+                          a record outside; the violations printed by
+                          method
                 decode    cuda_decode_*(rx, code) with its default mode,
                           "exact", on the forward's rx
                 receive   StreamReceiver.receive at bench.py's receiver
@@ -170,6 +181,20 @@ Phases, each of which raises on a miss:
                           8,192-frame stream also through the chain and
                           the receive on the CPU: the same lock, frames,
                           accepts and bytes as on the card
+                parity    tools/parity_f64.py on one batch (block_32_64,
+                          131,072 frames of seed 1000, 4 dB, 20
+                          iterations, early exit), both methods: the f32
+                          path, the tile kernel and its plain version on
+                          the card, and the C++ float64 oracle on the
+                          host's cores; each path's mismatched share
+                          against the oracle, and the kernel's against the
+                          f32 path, at most 1e-3; the min-sum kernel the
+                          same decisions as its plain version, the SPA
+                          kernel none two valid codewords apart from it;
+                          each frame on two different valid codewords in
+                          any pair diagnosed (tools/twovalid.py) and a
+                          boundary frame: its 64 perturbations of 1e-6
+                          land on at least two words
                 study     the main() of each study script under
                           gr_ldpc_ece535a_torch/tools/ (ablate_pallas,
                           proto_r3b, proto_r4b; fast_kernel_proto, proto_r2,
@@ -256,6 +281,7 @@ STEP_FRAMES = 1 << 17
 CHAIN_FRAMES = 1 << 17                             # the JAX chain bench's segment
 CHAIN_APP_FRAMES = 1 << 13                         # the app's 64-symbol blocks
 LARGE_PTS = (1.0, 1.5, 2.0)                        # the gen_256_512 sweep
+ANCHOR_FRAMES = 100_000                            # the sim_8_16 anchor sweep
 SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_large": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_exact": "gr_ldpc_ece535a_torch/csrc/bp_exact.cu"}
@@ -377,12 +403,13 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.parallel import make_sweep_step
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
-    from gr_ldpc_ece535a_torch.tools import (ablate_pallas, bench_chain,
-                                             chain_check, dsp_loops_check,
+    from gr_ldpc_ece535a_torch.tools import (ablate_pallas, anchor,
+                                             bench_chain, chain_check,
+                                             dsp_loops_check,
                                              fast_kernel_proto,
-                                             flowgraph_check, proto_r2,
-                                             proto_r3, proto_r3b, proto_r3c,
-                                             proto_r4, proto_r4b,
+                                             flowgraph_check, parity_f64,
+                                             proto_r2, proto_r3, proto_r3b,
+                                             proto_r3c, proto_r4, proto_r4b,
                                              receive_check)
     from gr_ldpc_ece535a_torch.tools._timing import (bins, bound_ms,
                                                      make_inputs, time_decode)
@@ -1104,6 +1131,30 @@ def main() -> int:
         if not (np.diff(resl.fer[m]) < 0).all():
             raise AssertionError(f"{big.name} {m}: FER does not fall with SNR")
 
+    # the anchor: the sweep's sim_50_100 result against the reference binary
+    # ldpc_lapack's committed run, then a sim_8_16 sweep against
+    # ldpc_umfpack's
+    umf = anchor.load_record("umfpack")["reference_run"]
+    res_umf, umf_counts = drive(
+        "anchor", lambda: run_waterfall(
+            anchor.CODES["umfpack"], umf["ebn0_db"],
+            frames_per_point=ANCHOR_FRAMES, iterations=anchor.ITERATIONS,
+            methods=tuple(anchor.method_map(umf).values()), device=dev),
+        ("bp_minsum",))
+    for name, r in (("lapack", res), ("umfpack", res_umf)):
+        report = anchor.anchor_check(r, name)
+        log(f"[anchor] {r.code_name}, {r.frames_per_point} frames a point, "
+            f"against {anchor.RECORDS[name].name}: {anchor.summary(report)}")
+        for m, v in report["methods"].items():
+            for p in v["violations"]:
+                log(f"    {m} at {p['ebn0_db']:+.1f} dB: {p['ours']:.6g} "
+                    f"outside [{p['band'][0]:.4g}, {p['band'][1]:.4g}] "
+                    f"({p['ref_count']} of {anchor.FRAMES})")
+        if report["total_violations"] > anchor.MAX_VIOLATIONS:
+            raise AssertionError(f"{r.code_name}: "
+                                 f"{report['total_violations']} points "
+                                 f"outside the reference run's bands")
+
     vx, dec_counts = drive(
         "decode", lambda: {m: kernels[m](rx5, code) for m in kernels},
         ("bp_sumproduct_exact", "bp_minsum_exact"))
@@ -1114,6 +1165,10 @@ def main() -> int:
                 code, False, min_agree=EXACT_MIN_AGREE)
     path_counts = {"": fwd_counts, "_large": sweep_counts,
                    "_exact": dec_counts}
+    # the sweep's tile launches (the anchor reads its sim_50_100 result) and
+    # the anchor's own sim_8_16 sweep
+    for name in ("bp_minsum", "bp_sumproduct"):
+        fwd_counts[name] += sweep_counts[name] + umf_counts[name]
 
     # the streaming receiver at bench.py's receiver shape: every receive
     # path for both methods, then each held to the others and to the plain
@@ -1201,6 +1256,27 @@ def main() -> int:
         log(f"[chain] app {name}: the CPU's lock, frames, accepts and bytes "
             f"are the card's")
     del ch_sp, ch_res, cpu_sp
+
+    # the parity against the C++ float64 oracle, one batch: the f32 path,
+    # the tile kernels and their plain versions on the card, the oracle on
+    # the host's cores; every frame on two different valid codewords in any
+    # pair diagnosed, and a boundary frame
+    par, par_counts = drive("parity", lambda: parity_f64.run_parity(
+        1, dev, log=log), ("bp_minsum", "bp_sumproduct"))
+    for m, r in par["results"].items():
+        log(f"[parity] {m}, {r['frames']} frames: " + "; ".join(
+            f"{p} mismatched share {r[p]['mismatch'] / r['frames']:.3g} "
+            f"{json.dumps(r[p])}" for p in parity_f64.PAIRS)
+            + f"; valid words {json.dumps(r['valid'])} [{card}]")
+    log(f"[parity] {len(par['cases'])} frames on two different valid "
+        f"codewords, {sum(c['boundary'] for c in par['cases'])} of them "
+        f"boundary frames; {par['wall_s']:.1f} s, the oracle "
+        f"{par['oracle_wall_s']:.1f} s on {par['oracle_threads']} threads")
+    if misses := parity_f64.check(par):
+        raise AssertionError("parity against the float64 oracle: "
+                             + "; ".join(misses))
+    for name in ("bp_minsum", "bp_sumproduct"):    # the parity's launches too
+        fwd_counts[name] += par_counts[name]
 
     # each study script's main at the prototypes' size: its variants'
     # kernels, timed beside their plain versions

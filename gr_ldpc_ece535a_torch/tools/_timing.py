@@ -13,6 +13,7 @@ from __future__ import annotations
 import argparse
 import statistics
 
+import numpy as np
 import torch
 
 from ..codes import LdpcCode, get_code
@@ -22,7 +23,7 @@ from ..ops.cuda_study import study_decode, study_plain
 from ..ops.cuda_study_ms import study_ms_decode, study_ms_plain
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "bins", "bound_ms", "loop_bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
+           "bins", "decomp", "valid_rows", "bound_ms", "loop_bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
            "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE",
            "LOOP_BYTES_PER_SAMPLE", "OPS_PER_SAMPLE"]
 
@@ -129,6 +130,28 @@ def bins(vk: torch.Tensor, vp: torch.Tensor, code: LdpcCode) -> dict:
             "only_kernel_valid": int((diff & ok_k & ~ok_p).sum()),
             "succ_kernel": float(ok_k.float().mean()) if B else 1.0,
             "succ_plain": float(ok_p.float().mean()) if B else 1.0}
+
+
+def valid_rows(v: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """(B,) True where the decision v[b] (numpy (B, N)) satisfies H."""
+    return ((v.astype(np.int32) @ H.T.astype(np.int32)) % 2 == 0).all(axis=1)
+
+
+def decomp(va: np.ndarray, vb: np.ndarray, H: np.ndarray) -> dict:
+    """Mismatch count and syndrome decomposition of decisions va (ours)
+    against vb (the float64 oracle's), both (B, N) numpy: the bins of
+    tools/parity_f64_r5.py::_decomp, under its names."""
+    diff = (va != vb).any(axis=1)
+    idx = np.nonzero(diff)[0]
+    ok_a = valid_rows(va[idx], H)
+    ok_b = valid_rows(vb[idx], H)
+    return {
+        "mismatch": int(diff.sum()),
+        "both_syndrome_fail": int((~ok_a & ~ok_b).sum()),
+        "both_valid_different": int((ok_a & ok_b).sum()),
+        "only_f64_valid": int((ok_b & ~ok_a).sum()),
+        "only_ours_valid": int((ok_a & ~ok_b).sum()),
+    }
 
 
 def study_kind(kind: str) -> str:

@@ -10,7 +10,10 @@ and ``dryrun_multichip(2 S)``, and the receive at bench.py's receiver shape
 (``tools/receive_check.py``; ``--frames``, 2^19 by default) on a mesh of S
 stream shards, one a card (or S on the CPU), against the one-shard chunked
 receive: the same lock, frames, accepts and bytes, with and without the
-weights. Raises on a miss; prints what it compared.
+weights. Raises on a miss; prints what it compared. With ``--bench``
+(``cuda`` only), then the weak-scaling launchers of ``multihost_worker``
+(``--bench`` and ``--bench-stream``: NCCL, one card a process, 2 x 1
+against 4 x 1, 131,072 frames a card), each printing its JSON line.
 """
 
 from __future__ import annotations
@@ -117,7 +120,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--frames", type=int, default=receive_check.FRAMES)
+    ap.add_argument("--bench", action="store_true",
+                    help="then the NCCL weak-scaling launchers (4 cards)")
     args = ap.parse_args(argv)
+    if args.bench and args.device != "cuda":
+        raise ValueError("--bench runs the NCCL launchers: --device cuda")
     S = args.shards
     if S < 2 or S % 2:
         raise ValueError("--shards must be even and at least 2")
@@ -129,6 +136,11 @@ def main(argv=None) -> None:
     dryrun_multichip(2 * S, device=args.device)
     check_receive(S, args.device, args.frames)
     print("[done] every layout and shard count agreed", flush=True)
+    if args.bench:
+        from .multihost_worker import bench_launcher
+
+        for stream in (False, True):
+            print(json.dumps(bench_launcher(stream=stream)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The PyTorch port imports no JAX and nothing of the JAX package: a static
-scan of its sources.
+scan of its sources. Nor does it import the repo's scripts (``tools/*.py``,
+``bench.py``): it keeps copies of what it needs from them.
 
 A ``sys.modules`` check cannot serve here, because this environment imports
 jax before any test runs. So the scan reads the abstract syntax trees of the
@@ -56,7 +57,9 @@ def test_scan_covers_the_port():
             "apps/ldpc_dump.py", "apps/ldpc_flowgraph.py",
             "apps/ldpc_image_loopback.py", "tools/bench_chain.py",
             "tools/chain_check.py", "blocks/dsp.py", "ops/cuda_dsp.py",
-            "tools/dsp_loops_check.py"} <= names
+            "tools/dsp_loops_check.py", "tools/anchor.py",
+            "tools/parity_f64.py", "tools/twovalid.py",
+            "tools/gen_api_docs.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))
@@ -72,6 +75,19 @@ def test_port_imports_nothing_of_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for name, _top in _imports(tree):
         assert name.split(".")[0] != "gr_ldpc_ece535a_tpu", \
+            f"{path}: imports {name}"
+
+
+# the repo's own scripts: tools/*.py, importable as top-level modules when
+# tools/ is on sys.path, and bench.py
+REPO_SCRIPTS = {"tools", "bench", *(p.stem for p in (ROOT / "tools").glob("*.py"))}
+
+
+@pytest.mark.parametrize("path", SCANNED, ids=_ids(SCANNED))
+def test_port_imports_nothing_of_the_repo_scripts(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name, _top in _imports(tree):
+        assert name.split(".")[0] not in REPO_SCRIPTS, \
             f"{path}: imports {name}"
 
 
