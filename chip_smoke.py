@@ -6,9 +6,11 @@
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu,
-              csrc/bp_study.cu, csrc/bp_study_ms.cu and csrc/dsp_loops.cu,
-              in parallel, into gr_ldpc_ece535a_torch/_build/; prints
-              ptxas's summary; reads each loop kernel's recurrence off its
+              csrc/bp_study.cu, csrc/bp_study_ms.cu, csrc/dsp_loops.cu and
+              csrc/pfb_track.cu, in parallel, into
+              gr_ldpc_ece535a_torch/_build/; prints ptxas's summary and the
+              tracker kernel's shared memory and threads at the chain's
+              composed shape; reads each loop kernel's recurrence off its
               SASS (tools/issue_model.py loop_chain: the least chain of
               dependent instructions a sample over the paths through the
               loop, 4 cycles a link); counts
@@ -68,6 +70,23 @@ Phases, each of which raises on a miss:
               4,096, 4,097 and 8,191 samples, each from the last one's
               state, the one call's output and state bit for bit; at the
               flowgraph path's shapes see phase 4's leg (c).
+              The clock tracker's kernel (csrc/pfb_track.cu,
+              tools/pfb_track_check.py) against its plain version on the
+              card, one block a call from the plain version's state along
+              its trajectory, on the chain's stream after its block AGC,
+              CFO estimate and mix (2^21 samples): 64 blocks each at 64
+              symbols (rate clip 0.002), 2,048 and 8,192 (2.5e-4); symbols
+              within 1e-5, rate within 1e-6, ibase equal, frac within one
+              float32 step of the block advance; the same at 64 symbols on
+              the stream with a NaN and an inf sample (NaN where the plain
+              version's is), and a stream with no whole block (no launch,
+              the acquired state); at the main path's shapes, one launch
+              over the chain's composed stream (2^24 samples, 1,022 blocks
+              of 8,192) and over one DSP-flowgraph segment (126 blocks of
+              64) bit for bit the kernel run one block a call from its own
+              returned state (symbols and final state); one launch over
+              the 64 blocks against the plain version's run printed (no
+              bar).
               The w-major kernels against their plain versions: identical
               decisions (min-sum, every comparison), or (SPA, whose log tanh
               runs on the SFU) the precise contracts: early exit at most
@@ -149,7 +168,8 @@ Phases, each of which raises on a miss:
                           (its own, min-sum) and 64 x 64 under method 1: the
                           decoder locks, at least one image written equals
                           the BMP byte for byte, agc_loop, costas_loop and
-                          the method's BP kernel launch; after the
+                          the method's BP kernel launch, and pfb_track once
+                          a 16,384-sample segment; after the
                           counts are read, each chunk the AGC and Costas
                           blocks got there (the lengths the path gives,
                           not whole tiles) is held at its own shape: the
@@ -170,7 +190,9 @@ Phases, each of which raises on a miss:
                           rx_chain_pairs with timing "track" (blocks of
                           8,192 symbols, rate clip 2.5e-4) and "ff", and
                           8,192 frames with the app's default (blocks of
-                          64); each into StreamReceiver.receive, min-sum
+                          64), the tracker's block loop the pfb_track
+                          kernel (it must launch); each into
+                          StreamReceiver.receive, min-sum
                           and sum-product, 5 iterations: each must lock,
                           recover at least 99% of the sent frames, and
                           emit every frame with its sent bytes (lost frames
@@ -228,7 +250,12 @@ Phases, each of which raises on a miss:
               16,384-sample stream, beside their HBM bound
               (tools/_timing.py loop_bound_ms, 16 bytes a sample) and
               their serial floor (phase 2's chain, at the SM clock each
-              held back to back);
+              held back to back); the tracker's kernel and its plain
+              version by CUDA events at the chain's composed shape (2^24
+              samples, 1,022 blocks of 8,192) and on one 16,384-sample
+              segment of 64-symbol blocks, beside its bound
+              (tools/_timing.py track_bound_ms) and its one-SM floor (its
+              FMAs at 128 a clock, at the SM clock it held back to back);
               the chain path's stages by CUDA events (block AGC, CFO, mix,
               the tracker in all and a block, V&V) in its three settings,
               the chain's samples a second by timing block (256-8,192, on
@@ -246,7 +273,8 @@ iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
 carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
 minsum_wavefronts, exact_minsum_wavefronts; a register tier reads no table
 and no -rx) at one a clock an SM, at the SM clock the kernel holds.
-The two loop kernels' records carry serial_ms, their serial floor. The
+The two loop kernels' records carry serial_ms, their serial floor; the
+tracker's carries sm_floor_ms and its times on one app segment. The
 line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
@@ -290,6 +318,9 @@ LOOP_SOURCE = "gr_ldpc_ece535a_torch/csrc/dsp_loops.cu"
 # no TPU kernel: the JAX package runs both loops as lax.scan recurrences
 LOOP_REPLACES = {"agc_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:113",
                  "costas_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:130"}
+# no TPU kernel: _pfb_core's lax.scan over blocks (the scan at :533)
+TRACK_SOURCE = "gr_ldpc_ece535a_torch/csrc/pfb_track.cu"
+TRACK_REPLACES = "gr_ldpc_ece535a_tpu/ops/dsp.py:348"
 REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
             "bp_sumproduct_large": f"{_PALLAS}:584",
             "bp_minsum_large": f"{_PALLAS}:668",
@@ -408,11 +439,12 @@ def main() -> int:
                                              dsp_loops_check,
                                              fast_kernel_proto,
                                              flowgraph_check, parity_f64,
+                                             pfb_track_check,
                                              proto_r2, proto_r3, proto_r3b,
                                              proto_r3c, proto_r4, proto_r4b,
                                              receive_check)
-    from gr_ldpc_ece535a_torch.tools._timing import (bins, bound_ms,
-                                                     make_inputs, time_decode)
+    from gr_ldpc_ece535a_torch.tools._timing import (
+        SM_FMA_PER_CLOCK, bins, bound_ms, make_inputs, time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
         LOOP_LATENCY, by_pipe, exact_floor_ms, exact_minsum_wavefronts,
         exact_mix, loop_chain, minsum_wavefronts, probe_sass, sass_dump,
@@ -444,7 +476,8 @@ def main() -> int:
             exact = re.search(r"bp_exact_kernelILi(\d+)ELb(\d)ELi\d+ELi(\d+)E",
                               line)
             pairs = re.search(r"bp_minsum_pairsILi(\d+)E", line)
-            loop = re.search(r"\d+(agc_loop|costas_loop)_kernel", line)
+            loop = re.search(r"\d+(agc_loop|costas_loop|pfb_track)_kernel",
+                             line)
             study = (cuda_study.instance_of(line)
                      or cuda_study_ms.instance_of(line))
             if "Compiling" in line:
@@ -508,6 +541,13 @@ def main() -> int:
                     f"link; {regs.get(name)} registers")
     if set(chains) != set(cuda_dsp.KERNELS):
         raise AssertionError(f"loop kernels in the SASS: {sorted(chains)}")
+    tlib = load_library("pfb_track")
+    log(f"[build] pfb_track at the chain's composed shape (8,192 symbols a "
+        f"block, 2 samples a symbol, 32 phases, 23 taps, 32 window columns):"
+        f" {tlib.pfb_track_smem_bytes(8192, 2, 32, 23, 32)} B of shared "
+        f"memory, {tlib.pfb_track_threads(8192)} threads; at 64-symbol "
+        f"blocks {tlib.pfb_track_smem_bytes(64, 2, 32, 23, 28)} B, "
+        f"{tlib.pfb_track_threads(64)} threads")
     # the SPA kernels' log tanh(x/2): its SASS by pipe; its MUFU count sets
     # their SFU floor (sfu_ms, phase 5)
     phi_ops = shipped_phi(built["bp_wmajor"][0])
@@ -1053,6 +1093,12 @@ def main() -> int:
     loop_res = dsp_loops_check.check(dev, log=log)
     for name, r in loop_res.items():
         max_err[name] = r["max_abs_err"]
+    # the clock tracker's kernel against its plain version, a block a call
+    # along the plain version's trajectory, and one launch at the main
+    # path's shapes against the kernel a block a call
+    track_res = pfb_track_check.check(dev, log=log)
+    max_err[cuda_dsp.TRACKER] = max(
+        r["max_abs_err"] for r in track_res.values() if "max_abs_err" in r)
 
     # -- 4. paths -----------------------------------------------------------
     def drive(path, fn, want, launches=(cuda_bp.LAUNCHES,)):
@@ -1208,7 +1254,7 @@ def main() -> int:
 
     (fg_loop, fg_acq, fg_chain), fg_counts = drive(
         "flowgraph", flowgraph_legs, ("bp_minsum", "bp_sumproduct",
-                                      *cuda_dsp.KERNELS),
+                                      *cuda_dsp.KERNELS, cuda_dsp.TRACKER),
         (cuda_bp.LAUNCHES, cuda_dsp.LAUNCHES))
     for name in ("bp_minsum", "bp_sumproduct"):    # launches on three paths
         fwd_counts[name] += fg_counts[name]
@@ -1235,8 +1281,9 @@ def main() -> int:
         return sp, {(tag, m): chain_check.receive(code, s[0], m)
                     for tag, s in sp.items() for m in receive_check.METHODS}
 
-    (ch_sp, ch_res), ch_counts = drive("chain", chain_path,
-                                       ("bp_minsum", "bp_sumproduct"))
+    (ch_sp, ch_res), ch_counts = drive(
+        "chain", chain_path, ("bp_minsum", "bp_sumproduct", cuda_dsp.TRACKER),
+        (cuda_bp.LAUNCHES, cuda_dsp.LAUNCHES))
     for (tag, m), r in ch_res.items():
         sent = (app_data if tag == "app" else ch_data).cpu().numpy()
         chain_check.check(code, sent, ch_sp[tag][0], r, m, tag, log=log)
@@ -1666,7 +1713,9 @@ def main() -> int:
                 for k, v in r["work_s"].items())
             + f"; the decoder's kernel alone on its {len(r['batches'])} "
             f"batches ({sum(len(b) for b in r['batches'])} frames) "
-            f"{k_ms:.4f} ms by CUDA events [{card}]")
+            f"{k_ms:.4f} ms by CUDA events; the tracker "
+            f"{r['segments']} segments, {cuda_dsp.TRACKER} launched "
+            f"{r['launches'][cuda_dsp.TRACKER]} times [{card}]")
     del fg_chain
     for m, r in fg_acq.items():
         log(f"[times] flowgraph acquisition {flowgraph_check.KERNEL[m]}: "
@@ -1678,7 +1727,7 @@ def main() -> int:
     for tag, xp_, kw in (("track", ch_xp, ch_cfg["track"]),
                          ("ff", ch_xp, ch_cfg["ff"]),
                          ("app", app_xp, ch_cfg["app"])):
-        reps = 1 if tag == "app" else 3      # the app's tracker: ~5 s a run
+        reps = 3
         st = chain_check.stage_ms(xp_, reps=reps, **kw)
         log(f"[times] chain stages {tag} {kw}, {xp_.shape[1]} samples, CUDA "
             f"events (median of {reps} after a warm-up): " + ", ".join(
@@ -1736,6 +1785,26 @@ def main() -> int:
             f"dependent instructions); serial floor {t['serial_ms']:.4f} ms, "
             f"HBM bound {t['bound_ms']:.6f} ms ({t['bound_by']}) [{card}]")
     del x_loop, agc_out
+    # the clock tracker's kernel: CUDA events beside its plain version and
+    # its bound, at the composed shape and on one app segment; its one-SM
+    # floor at the SM clock the kernel holds back to back
+    track_shapes = pfb_track_check.timed_shapes(dev)
+    track_times = pfb_track_check.times(dev, log=log, shapes=track_shapes)
+    xp_c, tb_c, rc_c = track_shapes["composed"]
+    xpp_c, banks_c, _, loop_c, st_c = pfb_track_check.setup(xp_c, tb_c, rc_c)
+    call_ms, samples = under_load(
+        lambda: cuda_dsp.pfb_track(xpp_c, *banks_c, st_c, loop_c), 2.0)
+    mhz = float(np.median([c for c, _, _ in samples])) if samples else \
+        float("nan")
+    tc = track_times["composed"]
+    tc["sm_floor_ms"] = tc["fmas"] / (SM_FMA_PER_CLOCK * mhz * 1e3)
+    log(f"[times] {cuda_dsp.TRACKER} composed: back to back {call_ms:.4f} ms "
+        f"a call at SM clock {mhz:.0f} MHz; {tc['fmas']:.4e} FMAs, one-SM "
+        f"floor {tc['sm_floor_ms']:.4f} ms at {SM_FMA_PER_CLOCK} a clock; "
+        f"kernel {tc['ms']:.4f} ms = {tc['ms'] / tc['sm_floor_ms']:.2f}x the "
+        f"floor, plain {tc['plain_ms']:.4f} ms, bound {tc['bound_ms']:.6f} ms "
+        f"({tc['bound_by']}) [{card}]")
+    del track_shapes, xp_c, xpp_c, banks_c, st_c
     log(f"[times] after: {clock_line()}")
 
     def route_of(name):    # "bp_minsum_large" -> "_large", "bp_minsum" -> ""
@@ -1777,7 +1846,19 @@ def main() -> int:
          "bound_by": loop_times[name]["bound_by"],
          "library_ms": None,   # no PyTorch call runs a nonlinear feedback loop
          "serial_ms": loop_times[name]["serial_ms"]}
-        for name in cuda_dsp.KERNELS]}
+        for name in cuda_dsp.KERNELS] + [
+        {"name": cuda_dsp.TRACKER, "route": "cuda", "source": TRACK_SOURCE,
+         "replaces": TRACK_REPLACES,
+         "launches": fg_counts[cuda_dsp.TRACKER] + ch_counts[cuda_dsp.TRACKER],
+         "max_abs_err": max_err[cuda_dsp.TRACKER],
+         "ms": track_times["composed"]["ms"],
+         "plain_ms": track_times["composed"]["plain_ms"],
+         "bound_ms": track_times["composed"]["bound_ms"],
+         "bound_by": track_times["composed"]["bound_by"],
+         "library_ms": None,   # no PyTorch call runs this feedback loop
+         "sm_floor_ms": track_times["composed"]["sm_floor_ms"],
+         "segment_ms": track_times["segment"]["ms"],
+         "segment_plain_ms": track_times["segment"]["plain_ms"]}]}
     log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s, the "
         f"build included")
     print(json.dumps(record))

@@ -268,7 +268,8 @@ class PfbClockSyncBlock(Block):
     frac, rate) carries across segments, each starting where the last one's
     tracker stopped. A segment whose tracker consumed nothing is dropped,
     so the stream always moves on. The samples short of a segment wait for
-    the next chunk.
+    the next chunk. ``segments`` counts the segments tracked so far (on a
+    card, a launch of the tracker kernel each).
     """
 
     in_dtype = np.complex64
@@ -287,6 +288,7 @@ class PfbClockSyncBlock(Block):
         self.device = torch.device(device)
         self._buf = np.zeros(0, np.complex64)
         self._state = None  # (ibase, frac, rate) after acquisition
+        self.segments = 0
 
     def work(self, data):
         n = len(data)
@@ -300,6 +302,7 @@ class PfbClockSyncBlock(Block):
                 _upload(self._buf[:self.segment], self.device), sps=self.sps,
                 nfilts=self.nfilts, excess_bw=self.excess_bw,
                 loop_bw=self.loop_bw, state0=self._state)
+            self.segments += 1
             consumed = int(ib)
             if consumed <= 0:  # pathological; drop the segment to progress
                 consumed = self.segment

@@ -23,7 +23,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
            for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms",
-                        "dsp_loops")}
+                        "dsp_loops", "pfb_track")}
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as it does in the plain PyTorch versions. No --use_fast_math: the
@@ -155,6 +155,20 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                                    f, f,      # alpha, beta
                                    p, p, p],  # (phase, freq) in, out, stream
                "dsp_error_string": [i]}
+    elif name == "pfb_track":
+        q = ctypes.c_longlong
+        fns = {"pfb_track": [p, q,            # x (2, n) f32 padded, n
+                             p, p,            # bank, dbank (nfilts, L) f32
+                             p, p, p,         # ibase (int64), frac, rate in
+                             p, p, p, p,      # ys (2, nblocks, B); state out
+                             i, i, i, i, i,   # nblocks, B, sps, nfilts, L
+                             i, i, i, q,      # d0, rows, width, last
+                             f, f, f, f, f,   # nfilts, B*sps, B, a, a*a
+                             f, f, f, f,      # 1/h, 1/(2 delta), qs, clip
+                             p],              # cudaStream_t
+               "pfb_track_smem_bytes": [i] * 5,   # B, sps, nfilts, L, width
+               "pfb_track_threads": [i],          # B
+               "pfb_track_error_string": [i]}
     elif name in ("bp_study", "bp_study_ms"):
         fns = {f"{name}_decode": [
                    i,           # instance (bp_study_find's index)

@@ -1,30 +1,38 @@
-"""Hand-written CUDA kernels of the streaming receive blocks' per-sample
-feedback loops: the AGC (``agc_loop``) and the BPSK Costas loop
-(``costas_loop``), built from ``csrc/dsp_loops.cu`` by ``ops/_build.py`` and
-loaded through ctypes.
+"""Hand-written CUDA kernels of the receive DSP's feedback loops, built by
+``ops/_build.py`` and loaded through ctypes: the streaming blocks'
+per-sample AGC (``agc_loop``) and BPSK Costas loop (``costas_loop``), from
+``csrc/dsp_loops.cu``, and the polyphase clock tracker's block loop
+(``pfb_track``), from ``csrc/pfb_track.cu``.
 
-They replace no TPU kernel: the JAX package runs both loops as
-``lax.scan`` recurrences (``gr_ldpc_ece535a_tpu/ops/dsp.py:113``, ``:130``).
-The public functions are ``ops.dsp.agc`` and ``ops.dsp.costas_loop``: on a
-CUDA tensor they launch these kernels, on a CPU tensor they run the plain
-versions beside them there (``agc_plain``, ``costas_loop_plain``); there is
-no fallback between the two. The wrappers here take CUDA tensors only and
-raise on anything else, and on a launch the kernel refuses. Each launch
-adds one to ``LAUNCHES[kernel name]``; an empty stream launches nothing.
+They replace no TPU kernel: the JAX package runs the three loops as
+``lax.scan`` recurrences (``gr_ldpc_ece535a_tpu/ops/dsp.py:113``, ``:130``,
+and ``_pfb_core``'s at ``:533``). The public functions are
+``ops.dsp.agc``, ``ops.dsp.costas_loop`` and the tracker's
+``pfb_clock_sync(_pairs)``: on a CUDA tensor they launch these kernels, on
+a CPU tensor they run the plain versions beside them there (``agc_plain``,
+``costas_loop_plain``, ``_pfb_track_plain``); there is no fallback between
+the two. The wrappers here take CUDA tensors only and raise on anything
+else, and on a launch the kernel refuses. Each launch adds one to
+``LAUNCHES[kernel name]``; an empty stream launches nothing.
+``KERNELS`` names the two per-sample loops, ``TRACKER`` the block loop.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-__all__ = ["agc_loop", "costas_loop", "KERNELS", "LAUNCHES", "TILE"]
+__all__ = ["agc_loop", "costas_loop", "pfb_track", "KERNELS", "TRACKER",
+           "LAUNCHES", "TILE", "TRACK_TILE"]
 
 # kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
-KERNELS = ("agc_loop", "costas_loop")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+KERNELS = ("agc_loop", "costas_loop")       # the per-sample loops
+TRACKER = "pfb_track"                       # the clock tracker's block loop
+LAUNCHES = dict.fromkeys((*KERNELS, TRACKER), 0)
 TILE = 4096     # samples a block stages at a time: csrc/dsp_loops.cu's kTile
+TRACK_TILE = 2048   # symbols pfb_track stages at a time: its kTileSyms
 
 
 def _check(x: torch.Tensor, state: torch.Tensor, size: int) -> None:
@@ -76,3 +84,82 @@ def costas_loop(x: torch.Tensor, alpha: float, beta: float,
     x's device: (y, the final (phase, freq) as a (2,) tensor)."""
     _check(x, state0, 2)
     return _launch("costas_loop", "dsp_costas_loop", x, alpha, beta, state0)
+
+
+def _f32(v: float) -> ctypes.c_float:
+    return ctypes.c_float(float(np.float32(v)))
+
+
+def _recip(v: float) -> ctypes.c_float:
+    """torch's division of a float32 tensor by the Python scalar v on the
+    card: a product with the float32 reciprocal of float32(v)."""
+    return ctypes.c_float(float(np.float32(1.0) / np.float32(v)))
+
+
+def _check_track(xpp, bank, dbank, state, loop) -> None:
+    """Raise on what the tracker kernel does not take: the shapes, types and
+    layouts first, then a tensor off the card."""
+    if (xpp.dtype != torch.float32 or xpp.dim() != 2 or xpp.shape[0] != 2
+            or not xpp.is_contiguous()):
+        raise ValueError("xpp must be a contiguous (2, n) float32 tensor")
+    shape = (loop.nfilts, loop.ntaps)
+    for name, t in (("bank", bank), ("dbank", dbank)):
+        if (t.device != xpp.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} float32 "
+                             f"tensor on {xpp.device}")
+    if len(state) != 3:
+        raise ValueError("the state is (ibase, frac, rate)")
+    for name, t, dtype in zip(("ibase", "frac", "rate"), state,
+                              (torch.int64, torch.float32, torch.float32)):
+        if t.device != xpp.device or t.dtype != dtype or t.numel() != 1:
+            raise ValueError(f"the state's {name} must be one {dtype} on "
+                             f"{xpp.device}")
+    B, sps = loop.block_syms, loop.sps
+    if B < 2 or B % 2:
+        raise ValueError(f"block_syms must be even and at least 2, not {B}")
+    if loop.width % sps or xpp.shape[1] < loop.last + (
+            B + loop.width // sps + 1) * sps:
+        raise ValueError("the stream is shorter than the loop's window")
+    if xpp.device.type != "cuda":
+        raise ValueError(f"the {TRACKER} kernel takes CUDA tensors, not "
+                         f"{xpp.device}")
+
+
+def pfb_track(xpp: torch.Tensor, bank: torch.Tensor, dbank: torch.Tensor,
+              state, loop) -> tuple[torch.Tensor, tuple]:
+    """The clock tracker's block loop on the card: ``loop.nblocks`` blocks of
+    ``loop.block_syms`` symbols over the padded stream ``xpp`` (2, n + d0)
+    float32, with the banks ``bank``/``dbank`` (nfilts, L) float32, from
+    ``state`` = (ibase int64, frac float32, rate float32), one element each
+    on xpp's device. ``loop`` is ``ops.dsp.PfbLoop``. Returns the (2,
+    nblocks*block_syms) symbol planes and the final state as 0-d tensors;
+    with no block it launches nothing and returns the state it was given."""
+    _check_track(xpp, bank, dbank, state, loop)
+    B, sps, n = loop.block_syms, loop.sps, xpp.shape[1]
+    ys = torch.empty((2, loop.nblocks, B), dtype=torch.float32,
+                     device=xpp.device)
+    if loop.nblocks == 0:
+        return ys.reshape(2, 0), tuple(state)
+    from ._build import load_library
+
+    lib = load_library("pfb_track")
+    ibase, frac, rate = (t.contiguous() for t in state)
+    out = [torch.empty_like(t).reshape(()) for t in (ibase, frac, rate)]
+    h = B // 2
+    with torch.cuda.device(xpp.device):
+        err = lib.pfb_track(
+            xpp.data_ptr(), n, bank.data_ptr(), dbank.data_ptr(),
+            ibase.data_ptr(), frac.data_ptr(), rate.data_ptr(), ys.data_ptr(),
+            *(t.data_ptr() for t in out), loop.nblocks, B, sps, loop.nfilts,
+            loop.ntaps, loop.d0, loop.rows, loop.width, loop.last,
+            _f32(loop.nfilts), _f32(B * sps), _f32(B), _f32(loop.gain),
+            _f32(loop.gain * loop.gain), _recip(h),
+            _recip(2.0 * (1.0 / loop.nfilts)), _f32(sps / (2.0 * np.pi)),
+            _f32(loop.rate_clip),
+            torch.cuda.current_stream(xpp.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{TRACKER} launch failed: "
+                           f"{lib.pfb_track_error_string(err).decode()}")
+    LAUNCHES[TRACKER] += 1
+    return ys.reshape(2, -1), tuple(out)

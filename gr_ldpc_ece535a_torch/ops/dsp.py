@@ -22,13 +22,16 @@ The per-sample recurrences ``agc`` and ``costas_loop``, which only the
 streaming blocks of ``blocks/dsp.py`` call, run on the card as the
 hand-written kernels of ``csrc/dsp_loops.cu`` (``ops/cuda_dsp.py``) and on
 the CPU as their plain versions here, per-sample loops in float32 in JAX's
-order of operations.
+order of operations. The clock tracker's block loop runs on the card as
+the kernel of ``csrc/pfb_track.cu`` and on the CPU as
+``_pfb_track_plain``, a torch step a block.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +55,7 @@ __all__ = [
     "coarse_cfo_estimate",
     "mix",
     "pfb_clock_sync",
+    "PfbLoop",
     "vv_carrier_recovery",
     "rx_chain",
     "to_pairs",
@@ -488,18 +492,29 @@ def _filter(xp: torch.Tensor, starts: torch.Tensor, T2: int,
     return (W[..., None, :] * td).sum(-1)
 
 
-def _pfb_core(xp: torch.Tensor, sps: int, nfilts: int, excess_bw: float,
-              ntaps_per: int, block_syms: int, rate_clip: float,
-              probe_syms: int, state0):
-    """The polyphase clock tracker on (2, n) float32 planes: returns the
-    (2, nblocks*block_syms) symbol planes and the state (ibase, frac, rate)
-    as 0-d tensors. One Python step a block of ``block_syms`` symbols, the
-    state on the device (no host sync between blocks). See
-    ``pfb_clock_sync``."""
-    dev = xp.device
-    bank_np, dbank_np = polyphase_rrc_banks(sps, nfilts, excess_bw, ntaps_per)
-    L = bank_np.shape[1]
-    n = int(xp.shape[1])
+class PfbLoop(NamedTuple):
+    """The clock tracker's block loop on one padded stream: its geometry and
+    its gain (``_pfb_loop``). Symbol k of a block samples at frac + k*(sps +
+    rate); its integer part leaves the nominal k*sps grid by at most ``d0``
+    samples either way, so its window is ``width`` columns from
+    clamp(ibase, 0, last) + k*sps, and its tap row r = d*nfilts + p of
+    ``rows`` rows is bank[p] at window column d (``_ext_taps``)."""
+    sps: int
+    nfilts: int
+    ntaps: int         # L, taps a polyphase row
+    block_syms: int    # B
+    d0: int            # the stream's leading pad, and the row offset / nfilts
+    rows: int          # R = (2*d0 + 1)*nfilts
+    width: int         # T2 window columns a symbol, whole sps groups
+    last: int          # the greatest window start: the reference's clamp
+    nblocks: int
+    rate_clip: float
+    gain: float        # the phase gain a; the rate gain is a*a
+
+
+def _pfb_loop(n: int, L: int, sps: int, nfilts: int, block_syms: int,
+              rate_clip: float) -> PfbLoop:
+    """The tracker's loop for an n-sample stream (before its pad)."""
     B = block_syms
     # symbol k of a block samples at frac + k*(sps + rate): its integer
     # part leaves the nominal k*sps grid by at most D0 samples either way
@@ -511,35 +526,95 @@ def _pfb_core(xp: torch.Tensor, sps: int, nfilts: int, excess_bw: float,
     nblocks = max((n - win_len - sps - 4) // (B * sps), 0)
     margin = int(rate_clip * nblocks * B) + 2 * sps + 4
     nblocks = max((n - win_len - margin) // (B * sps), 0)
-    R = Dspan * nfilts
-    taps = torch.from_numpy(
-        _probe_taps(_ext_taps(bank_np, dbank_np, R, T2))).to(dev)
+    # gain schedule: tau noise scales ~1/sqrt(half-block), so large blocks
+    # take a near-deadbeat step and small blocks damp toward the slow-loop
+    # regime; the rate gain is the square of the phase gain
+    a = float(np.clip(0.7 * B / 1024.0, 0.15, 0.7))
+    # the padded stream has n + D0 samples; a block window win_len
+    return PfbLoop(sps, nfilts, L, B, D0, Dspan * nfilts, T2,
+                   n + D0 - win_len, nblocks, rate_clip, a)
+
+
+def _pfb_bank(sps: int, nfilts: int, excess_bw: float, ntaps_per: int,
+              deriv: bool) -> np.ndarray:
+    """The matched-filter bank (or, ``deriv``, its derivative bank)."""
+    return polyphase_rrc_banks(sps, nfilts, excess_bw, ntaps_per)[int(deriv)]
+
+
+def _pfb_setup(xp: torch.Tensor, sps: int, nfilts: int, excess_bw: float,
+               ntaps_per: int, block_syms: int, rate_clip: float,
+               probe_syms: int, state0):
+    """The tracker's setup on (2, n) float32 planes: the padded stream
+    (2, n + d0), the banks (bank, dbank) on its device, the loop
+    (``PfbLoop``) and the state in, (ibase int64, frac, rate float32) 0-d
+    tensors: the acquisition's where ``state0`` is None."""
+    dev = xp.device
+    banks = [_on(_pfb_bank, (sps, nfilts, excess_bw, ntaps_per, deriv), dev)
+             for deriv in (False, True)]
+    loop = _pfb_loop(int(xp.shape[1]), banks[0].shape[1], sps, nfilts,
+                     block_syms, rate_clip)
     # D0 leading zeros keep every window start nonnegative; ibase counts
     # in the original stream's indexing (the pad cancels the -D0 column)
-    xpp = F.pad(xp.to(torch.float32), (D0, 0))
-    last = xpp.shape[1] - win_len      # the reference's slice start clamps
-
+    xpp = F.pad(xp.to(torch.float32), (loop.d0, 0))
     if state0 is None:
-        probe = min(probe_syms, max(nblocks, 1) * B)
-        ibase, frac = _pfb_init_search(
-            xp, torch.from_numpy(bank_np).to(dev), sps, probe)
+        probe = min(probe_syms, max(loop.nblocks, 1) * block_syms)
+        ibase, frac = _pfb_init_search(xp, banks[0], sps, probe)
         rate = torch.zeros((), dtype=torch.float32, device=dev)
     else:
         ibase = torch.as_tensor(state0[0], device=dev).to(torch.int64)
         frac = torch.as_tensor(state0[1], device=dev).to(torch.float32)
         rate = torch.as_tensor(state0[2], device=dev).to(torch.float32)
+    return xpp, banks, loop, (ibase, frac, rate)
 
+
+def _pfb_core(xp: torch.Tensor, sps: int, nfilts: int, excess_bw: float,
+              ntaps_per: int, block_syms: int, rate_clip: float,
+              probe_syms: int, state0):
+    """The polyphase clock tracker on (2, n) float32 planes: returns the
+    (2, nblocks*block_syms) symbol planes and the state (ibase, frac, rate)
+    as 0-d tensors. The setup (``_pfb_setup``), then the block loop: on a
+    CUDA tensor the ``pfb_track`` kernel (``ops/cuda_dsp.py``), on a CPU
+    tensor ``_pfb_track_plain``. See ``pfb_clock_sync``."""
+    xpp, banks, loop, state = _pfb_setup(xp, sps, nfilts, excess_bw,
+                                         ntaps_per, block_syms, rate_clip,
+                                         probe_syms, state0)
+    if xp.device.type == "cpu":
+        return _pfb_track_plain(xpp, _pfb_taps(sps, nfilts, excess_bw,
+                                               ntaps_per, loop), state, loop)
+    return cuda_dsp.pfb_track(xpp, *banks, state, loop)
+
+
+def _pfb_taps(sps: int, nfilts: int, excess_bw: float, ntaps_per: int,
+              loop: PfbLoop) -> torch.Tensor:
+    """The plain version's (rows, 6*width) probe table on the CPU."""
+    bank_np, dbank_np = polyphase_rrc_banks(sps, nfilts, excess_bw, ntaps_per)
+    return torch.from_numpy(
+        _probe_taps(_ext_taps(bank_np, dbank_np, loop.rows, loop.width)))
+
+
+def _pfb_track_plain(xpp: torch.Tensor, taps: torch.Tensor, state,
+                     loop: PfbLoop):
+    """The plain version of the tracker's block loop (the ``pfb_track``
+    kernel's): one Python step a block, about 50 torch calls, the state on
+    xpp's device (no host sync between blocks). ``xpp`` is the (2, n + d0)
+    padded stream, ``taps`` the (rows, 6*width) table of ``_probe_taps``
+    (on any device: it moves to xpp's), ``state`` (ibase int64, frac,
+    rate float32) 0-d tensors on xpp's device. Returns the (2,
+    nblocks*block_syms) symbol planes and the final state."""
+    ibase, frac, rate = state
+    dev = xpp.device
+    taps = taps.to(dev)
+    sps, nfilts, B = loop.sps, loop.nfilts, loop.block_syms
+    D0, R, T2, last, rate_clip = (loop.d0, loop.rows, loop.width, loop.last,
+                                  loop.rate_clip)
     ks = torch.arange(B, dtype=torch.float32, device=dev)
     grid = torch.arange(B, device=dev) * sps
     h = B // 2
     delta = 1.0 / nfilts               # input samples per phase step
     qs = sps / (2.0 * np.pi)
-    # gain schedule: tau noise scales ~1/sqrt(half-block), so large blocks
-    # take a near-deadbeat step and small blocks damp toward the slow-loop
-    # regime; the rate gain is the square of the phase gain
-    a = float(np.clip(0.7 * B / 1024.0, 0.15, 0.7))
-    ys = xp.new_empty((2, nblocks, B), dtype=torch.float32)
-    for j in range(nblocks):
+    a = loop.gain
+    ys = xpp.new_empty((2, loop.nblocks, B), dtype=torch.float32)
+    for j in range(loop.nblocks):
         # the k*sps*nfilts part of the position stays an exact integer;
         # only frac + k*rate is rounded (the naive float32 product loses
         # a whole phase step at blocks of 8,192 and more)
@@ -583,7 +658,10 @@ def pfb_clock_sync(x: torch.Tensor, sps: int, nfilts: int = 32,
     known in-band; atan2(e, g*sps/(2 pi)) on each half-block gives the
     timing error tau, whose mean steers the phase and whose difference the
     rate (a damped deadbeat update). ``loop_bw`` is accepted for the
-    reference's signature; the gain schedule does not read it.
+    reference's signature; the gain schedule does not read it. On a CUDA
+    tensor the blocks run in one launch of the ``pfb_track`` kernel, on a
+    CPU tensor in its plain version, a torch step a block; ``block_syms``
+    must be even.
 
     Returns (symbols (nblocks*block_syms,) complex64, (ibase, frac, rate)),
     the final loop state as 0-d tensors. ``state0`` (the same tuple, ibase

@@ -23,7 +23,9 @@ from ..ops.cuda_study import study_decode, study_plain
 from ..ops.cuda_study_ms import study_ms_decode, study_ms_plain
 
 __all__ = ["make_inputs", "time_decode", "study_inputs", "study_row", "cli",
-           "bins", "decomp", "valid_rows", "bound_ms", "loop_bound_ms", "study_kind", "STUDY_FNS", "TIMED_LAUNCHES", "EBN0_DB",
+           "bins", "decomp", "valid_rows", "bound_ms", "loop_bound_ms",
+           "track_bound_ms", "track_fmas", "study_kind", "STUDY_FNS",
+           "TIMED_LAUNCHES", "EBN0_DB", "SM_FMA_PER_CLOCK",
            "STUDY_FRAMES", "HBM_BYTES_S", "F32_OPS_S", "OPS_PER_EDGE",
            "LOOP_BYTES_PER_SAMPLE", "OPS_PER_SAMPLE"]
 
@@ -58,6 +60,16 @@ OPS_PER_EDGE = {"minsum": 10, "sumproduct": 14}
 #                + pi, fmod, the sign fix, - pi: 22
 LOOP_BYTES_PER_SAMPLE = 16
 OPS_PER_SAMPLE = {"agc_loop": 13, "costas_loop": 22}
+# the clock tracker's block loop (csrc/pfb_track.cu), a symbol: 12 dot
+# products of L taps (y and dy on two planes at three rows), each FMA two
+# operations; u and pw at the three rows (two products and a sum each: 18),
+# their half-block sums (6) and the position (a product, a sum, a product,
+# a rounding: 4). Bytes: the blocks' samples read once and the symbols
+# written once, two float32 planes each
+TRACK_DOTS = 12
+TRACK_OPS_PER_SYMBOL = 18 + 6 + 4
+# FMAs an SM issues a clock (4 schedulers x 32 lanes): the one-SM floor
+SM_FMA_PER_CLOCK = 128
 # a study kind -> (its instances' wrapper, their plain version)
 STUDY_FNS = {"minsum": (study_ms_decode, study_ms_plain),
              "sumprod": (study_decode, study_plain)}
@@ -113,6 +125,27 @@ def loop_bound_ms(kernel: str, samples: int) -> tuple[float, str]:
     ``loop_chain``."""
     by_bytes = samples * LOOP_BYTES_PER_SAMPLE / HBM_BYTES_S * 1e3
     by_ops = samples * OPS_PER_SAMPLE[kernel] / F32_OPS_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
+def track_fmas(nblocks: int, block_syms: int, ntaps: int) -> int:
+    """The FMAs of the tracker's dot products over ``nblocks`` blocks of
+    ``block_syms`` symbols, ``ntaps`` taps a polyphase row."""
+    return nblocks * block_syms * TRACK_DOTS * ntaps
+
+
+def track_bound_ms(nblocks: int, block_syms: int, ntaps: int,
+                   sps: int) -> tuple[float, str]:
+    """(least milliseconds, "bytes" or "operations") the card could take for
+    the tracker's block loop: the blocks' samples read and their symbols
+    written once, over HBM_BYTES_S, against 2 operations an FMA and
+    TRACK_OPS_PER_SYMBOL over F32_OPS_S. Neither counts that the blocks are
+    serial: the one-SM floor is track_fmas over SM_FMA_PER_CLOCK a clock."""
+    syms = nblocks * block_syms
+    by_bytes = (syms * sps * 8 + syms * 8) / HBM_BYTES_S * 1e3
+    by_ops = (2 * track_fmas(nblocks, block_syms, ntaps)
+              + syms * TRACK_OPS_PER_SYMBOL) / F32_OPS_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
 

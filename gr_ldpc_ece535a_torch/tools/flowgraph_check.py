@@ -43,12 +43,12 @@ LDPC-free sync prototypes:
     directory (the plot sinks render only where matplotlib is installed).
     The decoder must lock, at least one image written must equal the BMP
     byte for byte, and on a card each of the loop kernels and the method's
-    BP kernel must launch. It times the run by host clock, each block's
-    work() calls by host clock, keeps the decoder's batches for
-    ``kernel_ms``, and keeps the chunks the AGC and Costas blocks got
-    (``dsp_loops_check.LoopCapture``) for ``check_main_path``. At 128 x
-    128 the tracker alone, about 290 segments of 16,384 samples in
-    64-symbol blocks, takes most of the wall.
+    BP kernel must launch, and the clock tracker's kernel once a segment
+    (about 290 segments of 16,384 samples at 128 x 128). It times the run
+    by host clock, each block's work() calls by host clock, keeps the
+    decoder's batches for ``kernel_ms``, and keeps the chunks the AGC and
+    Costas blocks got (``dsp_loops_check.LoopCapture``) for
+    ``check_main_path``.
 
 ``sync_prototypes``  examples/example2.yaml and example3.yaml (512 random
     bytes, no file) on ``device``, at tests/test_graphcfg.py's bars: over
@@ -381,7 +381,7 @@ def dsp_chain(method: int, device, side: int | None = None,
            "sent_frames": REPEATS * len(bmp) // (code.K // 8),
            "info_bit_s": REPEATS * len(bmp) * 8 / wall_s,
            "decode": decode.fn, "batches": decode.batches,
-           "loops": captures}
+           "loops": captures, "segments": blocks["timing"].segments}
     log(f"[flowgraph] dsp chain (example4_full.yaml), method {method}: a "
         f"{side}x{side} BMP of {len(bmp)} bytes x {REPEATS} on {device}, "
         f"{len(images)} images written, equal to the input: {equal}, plots "
@@ -403,6 +403,12 @@ def dsp_chain(method: int, device, side: int | None = None,
             if launches[name] < 1:
                 raise AssertionError(f"dsp chain, method {method}: {name} "
                                      f"was not launched")
+        # the clock tracker: one launch a segment
+        segments = blocks["timing"].segments
+        if not segments or launches[cuda_dsp.TRACKER] != segments:
+            raise AssertionError(
+                f"dsp chain, method {method}: {cuda_dsp.TRACKER} launched "
+                f"{launches[cuda_dsp.TRACKER]} times for {segments} segments")
     return res
 
 

@@ -39,6 +39,7 @@ MODULES = [
     "gr_ldpc_ece535a_torch.tools.anchor",
     "gr_ldpc_ece535a_torch.tools.parity_f64",
     "gr_ldpc_ece535a_torch.tools.twovalid",
+    "gr_ldpc_ece535a_torch.tools.pfb_track_check",
 ]
 
 
