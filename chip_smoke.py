@@ -13,7 +13,8 @@ Phases, each of which raises on a miss:
               composed shape; reads each loop kernel's recurrence off its
               SASS (tools/issue_model.py loop_chain: the least chain of
               dependent instructions a sample over the paths through the
-              loop, 4 cycles a link); counts
+              loop, 4 cycles a link; the Costas loop runs four samples an
+              iteration); counts
               each study kernel's static SASS instructions (cuobjdump) and
               fails unless every unrolled instance has more than its
               unroll-1 sibling; the SASS of the w-major SPA kernels'
@@ -61,14 +62,23 @@ Phases, each of which raises on a miss:
               textbook SPA's agreement and frame error share against the sent
               codewords beside the shipped SPA's (no bar).
               The streaming blocks' loop kernels (csrc/dsp_loops.cu,
-              tools/dsp_loops_check.py): agc_loop on 16,391 samples (four
+              tools/dsp_loops_check.py): the AGC on 16,391 samples (four
               whole 4,096-sample tiles and 7) of an impaired stream (BPSK,
-              1e-3 cycles/sample carrier offset, noise 0.05, gain 2.5) and
-              costas_loop on its output, each against its plain version on
-              the card (a launch per torch operation and sample): the same
-              output bit for bit, the same final state, and pieces of 7,
-              4,096, 4,097 and 8,191 samples, each from the last one's
-              state, the one call's output and state bit for bit; at the
+              1e-3 cycles/sample carrier offset, noise 0.05, gain 2.5),
+              which takes its scan route (agc_scan, and agc_loop never),
+              and costas_loop on its output, each against its plain version
+              on the card (a launch per torch operation and sample): the
+              Costas kernel's output and final state bit for bit, the
+              scan's within 1e-5 relative a sample and 1e-6 on the gain,
+              and the same bits on two runs; pieces of 7, 4,096, 4,097 and
+              8,191 samples, each from the last one's state, against the
+              one call (the same bars); the AGC's serial route (agc_loop)
+              on an inf sample, an 8-sample burst with rate*|x| > 1 and a
+              gain of -0.5, each launching it once and bit for bit with the
+              plain version; the Costas kernel's phase wrap against fmodf
+              with the sign fix on every float in [-2 pi, 4 pi), and its
+              sincosf against sinf and cosf on every float in [-pi, pi],
+              with every infinity and NaN: 0 mismatches each; at the
               flowgraph path's shapes see phase 4's leg (c).
               The clock tracker's kernel (csrc/pfb_track.cu,
               tools/pfb_track_check.py) against its plain version on the
@@ -167,9 +177,10 @@ Phases, each of which raises on a miss:
                           seed 0 sent three times, 128 x 128 under method 0
                           (its own, min-sum) and 64 x 64 under method 1: the
                           decoder locks, at least one image written equals
-                          the BMP byte for byte, agc_loop, costas_loop and
-                          the method's BP kernel launch, and pfb_track once
-                          a 16,384-sample segment; after the
+                          the BMP byte for byte, agc_scan, costas_loop and
+                          the method's BP kernel launch, agc_loop does not
+                          (every AGC chunk takes the scan), and pfb_track
+                          once a 16,384-sample segment; after the
                           counts are read, each chunk the AGC and Costas
                           blocks got there (the lengths the path gives,
                           not whole tiles) is held at its own shape: the
@@ -178,7 +189,9 @@ Phases, each of which raises on a miss:
                           chunk cut 7 samples into its last tile, the two
                           calls give the one call's output and state and
                           the partial tile after the cut the plain
-                          version's from the state at the cut; examples/
+                          version's from the state at the cut (bit for bit
+                          for Costas, the scan's bars for the AGC, which
+                          must take the scan every call); examples/
                           example2.yaml and example3.yaml on the card and on
                           the CPU at tests/test_graphcfg.py's bars
                 chain     the receive DSP chain (tools/chain_check.py): a
@@ -203,6 +216,10 @@ Phases, each of which raises on a miss:
                           8,192-frame stream also through the chain and
                           the receive on the CPU: the same lock, frames,
                           accepts and bytes as on the card
+                agc edge  the AGC block (blocks/dsp.py AgcBlock2) on the
+                          card fed each of the three serial-route inputs:
+                          agc_loop must launch once each, and the block's
+                          output is the public function's on the card
                 parity    tools/parity_f64.py on one batch (block_32_64,
                           131,072 frames of seed 1000, 4 dB, 20
                           iterations, early exit), both methods: the f32
@@ -245,11 +262,13 @@ Phases, each of which raises on a miss:
               (flowgraph_check.kernel_ms); leg (b)'s two runs by host clock;
               leg (c)'s wall and info bits/s sent by host clock, each DSP
               block's and the decoder block's work() by host clock, and the
-              decoder's kernel on its batches by CUDA events; both loop
-              kernels and their plain versions by CUDA events on the
-              16,384-sample stream, beside their HBM bound
-              (tools/_timing.py loop_bound_ms, 16 bytes a sample) and
-              their serial floor (phase 2's chain, at the SM clock each
+              decoder's kernel on its batches by CUDA events; the three
+              loop kernels (the AGC's scan and serial routes, the Costas
+              loop) and their plain versions by CUDA events on the
+              16,391-sample stream, and each kernel alone on 2^21 samples
+              (the size of leg (c)'s chunks), beside their HBM bound
+              (tools/_timing.py loop_bound_ms, 16 bytes a sample) and the
+              serial kernels' floor (phase 2's chain, at the SM clock each
               held back to back); the tracker's kernel and its plain
               version by CUDA events at the chain's composed shape (2^24
               samples, 1,022 blocks of 8,192) and on one 16,384-sample
@@ -273,7 +292,10 @@ iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
 carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
 minsum_wavefronts, exact_minsum_wavefronts; a register tier reads no table
 and no -rx) at one a clock an SM, at the SM clock the kernel holds.
-The two loop kernels' records carry serial_ms, their serial floor; the
+The loop kernels' records carry their times on 2^21 samples (path_ms),
+their public function's call beside the kernel (call_ms, path_call_ms) and
+the launches on each path that drives them; the serial ones
+serial_ms, their serial floor; the
 tracker's carries sm_floor_ms and its times on one app segment. The
 line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
@@ -316,7 +338,8 @@ SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
 _PALLAS = "gr_ldpc_ece535a_tpu/ops/pallas_bp.py"
 LOOP_SOURCE = "gr_ldpc_ece535a_torch/csrc/dsp_loops.cu"
 # no TPU kernel: the JAX package runs both loops as lax.scan recurrences
-LOOP_REPLACES = {"agc_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:113",
+LOOP_REPLACES = {"agc_scan": "gr_ldpc_ece535a_tpu/ops/dsp.py:113",
+                 "agc_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:113",
                  "costas_loop": "gr_ldpc_ece535a_tpu/ops/dsp.py:130"}
 # no TPU kernel: _pfb_core's lax.scan over blocks (the scan at :533)
 TRACK_SOURCE = "gr_ldpc_ece535a_torch/csrc/pfb_track.cu"
@@ -421,6 +444,7 @@ def main() -> int:
         return 1
 
     t_start = time.perf_counter()
+    from gr_ldpc_ece535a_torch.blocks.dsp import AgcBlock2
     from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
     from gr_ldpc_ece535a_torch.entry import EBN0_DB, dryrun_multichip, entry
     from gr_ldpc_ece535a_torch.ops import (
@@ -476,8 +500,8 @@ def main() -> int:
             exact = re.search(r"bp_exact_kernelILi(\d+)ELb(\d)ELi\d+ELi(\d+)E",
                               line)
             pairs = re.search(r"bp_minsum_pairsILi(\d+)E", line)
-            loop = re.search(r"\d+(agc_loop|costas_loop|pfb_track)_kernel",
-                             line)
+            loop = re.search(r"\d+(agc_loop|costas_loop|pfb_track)_kernel"
+                             r"|\d+(agc_scan_\w+?)EP", line)
             study = (cuda_study.instance_of(line)
                      or cuda_study_ms.instance_of(line))
             if "Compiling" in line:
@@ -487,7 +511,7 @@ def main() -> int:
                 if pairs:
                     name = f"bp_minsum_pairs<WR={pairs[1]}>"
                 elif loop:
-                    name = loop[1]
+                    name = loop[1] or loop[2]
                 elif kernel:
                     name = (f"bp_kernel<WR={kernel[1]}, "
                             f"{'sumproduct' if kernel[2] == '1' else 'minsum'}, "
@@ -529,17 +553,17 @@ def main() -> int:
     # the paths through its loop (its serial floor, phase 5)
     chains = {}
     for fn, ins in sass_instructions(sass_dump(built["dsp_loops"][0])).items():
-        for name in cuda_dsp.KERNELS:
+        for name in cuda_dsp.SERIAL:
             if f"{name}_kernel" in fn:
-                chains[name] = loop_chain(ins)
-                log(f"[build] {name}: recurrence loop {chains[name]['body']} "
-                    f"instructions at {chains[name]['head']:#x}-"
-                    f"{chains[name]['tail']:#x}, {chains[name]['paths']} paths;"
-                    f" the least dependent chain a sample "
-                    f"{chains[name]['links']} instructions, "
-                    f"{chains[name]['cycles']} cycles at {LOOP_LATENCY} a "
-                    f"link; {regs.get(name)} registers")
-    if set(chains) != set(cuda_dsp.KERNELS):
+                c = chains[name] = loop_chain(ins, cuda_dsp.UNROLL[name])
+                log(f"[build] {name}: recurrence loop {c['body']} "
+                    f"instructions at {c['head']:#x}-{c['tail']:#x}, "
+                    f"{c['samples']} sample(s) an iteration, {c['paths']} "
+                    f"paths; the least dependent chain an iteration "
+                    f"{c['iteration_links']} instructions, a sample "
+                    f"{c['links']:g}, {c['cycles']:g} cycles at "
+                    f"{LOOP_LATENCY} a link; {regs.get(name)} registers")
+    if set(chains) != set(cuda_dsp.SERIAL):
         raise AssertionError(f"loop kernels in the SASS: {sorted(chains)}")
     tlib = load_library("pfb_track")
     log(f"[build] pfb_track at the chain's composed shape (8,192 symbols a "
@@ -1093,6 +1117,11 @@ def main() -> int:
     loop_res = dsp_loops_check.check(dev, log=log)
     for name, r in loop_res.items():
         max_err[name] = r["max_abs_err"]
+    # the AGC's serial route on the inputs that take it, bit for bit; the
+    # Costas kernel's wrap and sincosf over every float of their ranges
+    serial_res = dsp_loops_check.serial_route(dev, log=log)
+    max_err["agc_loop"] = max(r["max_abs_err"] for r in serial_res.values())
+    dsp_loops_check.shortcuts(dev, log=log)
     # the clock tracker's kernel against its plain version, a block a call
     # along the plain version's trajectory, and one launch at the main
     # path's shapes against the kernel a block a call
@@ -1254,7 +1283,8 @@ def main() -> int:
 
     (fg_loop, fg_acq, fg_chain), fg_counts = drive(
         "flowgraph", flowgraph_legs, ("bp_minsum", "bp_sumproduct",
-                                      *cuda_dsp.KERNELS, cuda_dsp.TRACKER),
+                                      cuda_dsp.SCAN, "costas_loop",
+                                      cuda_dsp.TRACKER),
         (cuda_bp.LAUNCHES, cuda_dsp.LAUNCHES))
     for name in ("bp_minsum", "bp_sumproduct"):    # launches on three paths
         fwd_counts[name] += fg_counts[name]
@@ -1265,6 +1295,30 @@ def main() -> int:
         for name, rec in dsp_loops_check.check_main_path(
                 r.pop("loops"), dev, log=log).items():
             max_err[name] = max(max_err[name], rec["max_abs_err"])
+
+    # the AGC block on the inputs that take its serial route
+    def agc_edge():
+        out = {}
+        for name, _ in dsp_loops_check.SERIAL_INPUTS:
+            x, g0 = dsp_loops_check.serial_input(name, "cpu")
+            block = AgcBlock2(device=dev, **dsp_loops_check.AGC)
+            block.gain = g0
+            out[name] = (x, g0, block.work(x.numpy())[1])
+        return out
+
+    edge_out, edge_counts = drive("agc edge", agc_edge, ("agc_loop",),
+                                  (cuda_dsp.LAUNCHES,))
+    if edge_counts["agc_loop"] != len(dsp_loops_check.SERIAL_INPUTS):
+        raise AssertionError(f"agc edge: agc_loop launched "
+                             f"{edge_counts['agc_loop']} times")
+    for name, (x, g0, y) in edge_out.items():
+        want = dsp.agc(x.to(dev), gain0=g0, **dsp_loops_check.AGC)[0]
+        if not np.array_equal(y.view(np.int32), want.cpu().numpy().view(
+                np.int32)):
+            raise AssertionError(f"agc edge, {name}: the block's output is "
+                                 f"not the public function's")
+    log(f"[agc edge] the block's outputs are the public function's on the "
+        f"card, bit for bit, on {list(edge_out)}")
 
     # the receive chain: raw sample streams through rx_chain_pairs in three
     # settings, each into the receiver with both methods; each held to the
@@ -1762,15 +1816,27 @@ def main() -> int:
             f"{res.n_frames * code.K / sp_['median']:.4e} info bit/s [{card}]")
     del ch_xp, app_xp
     # the streaming blocks' loop kernels: CUDA events beside their plain
-    # versions, their HBM bound and their serial floor (phase 2's chain at
-    # the SM clock each holds back to back)
+    # versions and their HBM bound, at 16,391 samples and 2^21; the serial
+    # kernels' floor (phase 2's chain at the SM clock each holds back to
+    # back)
     x_loop = dsp_loops_check.impaired_stream(device=dev)
     loop_times = dsp_loops_check.times(x_loop, log=log)
     agc_out = dsp.agc(x_loop, **dsp_loops_check.AGC)[0]
-    for name, fn in (("agc_loop", lambda: dsp.agc(x_loop,
-                                                  **dsp_loops_check.AGC)),
-                     ("costas_loop", lambda: dsp.costas_loop(
-                         agc_out, **dsp_loops_check.COSTAS))):
+    dlib = load_library("dsp_loops")
+    t = loop_times[cuda_dsp.SCAN]
+    log(f"[times] {cuda_dsp.SCAN} {x_loop.shape[0]} samples: kernel "
+        f"{t['ms']:.4f} ms (its three launches), its call {t['call_ms']:.4f}"
+        f" ms (the wrapper and the flag's read-back), plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}); {t['path_samples']} samples: kernel "
+        f"{t['path_ms']:.4f} ms, its call {t['path_call_ms']:.4f} ms, bound "
+        f"{t['path_bound_ms']:.6f} ms, the kernel "
+        f"{t['path_bound_ms'] / t['path_ms']:.3f} of the bound (CUDA events) "
+        f"[{card}]")
+    for name, fn in (("agc_loop", dsp_loops_check.launcher(
+                         dlib, "agc_loop", x_loop, (1.0,))),
+                     ("costas_loop", dsp_loops_check.launcher(
+                         dlib, "costas_loop", agc_out, (0.0, 0.0)))):
         call_ms, samples = under_load(fn, 2.0)
         mhz = float(np.median([c for c, _, _ in samples])) if samples else \
             float("nan")
@@ -1779,11 +1845,14 @@ def main() -> int:
         t["serial_ms"] = n * chains[name]["cycles"] / (mhz * 1e3)
         log(f"[times] {name} {n} samples: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms (CUDA events); back to back "
-            f"{call_ms:.4f} ms a call at SM clock {mhz:.0f} MHz, "
+            f"{call_ms:.4f} ms a launch at SM clock {mhz:.0f} MHz, "
             f"{t['ms'] * mhz * 1e3 / n:.1f} cycles a sample against the "
-            f"chain's {chains[name]['cycles']} ({chains[name]['links']} "
+            f"chain's {chains[name]['cycles']:g} ({chains[name]['links']:g} "
             f"dependent instructions); serial floor {t['serial_ms']:.4f} ms, "
-            f"HBM bound {t['bound_ms']:.6f} ms ({t['bound_by']}) [{card}]")
+            f"HBM bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
+            f"{t['path_samples']} samples {t['path_ms']:.4f} ms, "
+            f"{t['path_ms'] * mhz * 1e3 / t['path_samples']:.1f} cycles a "
+            f"sample [{card}]")
     del x_loop, agc_out
     # the clock tracker's kernel: CUDA events beside its plain version and
     # its bound, at the composed shape and on one app segment; its one-SM
@@ -1839,13 +1908,25 @@ def main() -> int:
                       ms_counts[name], "minsum")
         for name in cuda_study_ms.INSTANCES] + [
         {"name": name, "route": "cuda", "source": LOOP_SOURCE,
-         "replaces": LOOP_REPLACES[name], "launches": fg_counts[name],
+         "replaces": LOOP_REPLACES[name],
+         # the scan and Costas on the flowgraph path; the AGC's serial
+         # route on the path of the inputs that take it
+         "launches": (edge_counts if name == "agc_loop" else fg_counts)[name],
+         "launches_by_path": {"flowgraph": fg_counts[name],
+                              "agc edge": edge_counts[name]},
          "max_abs_err": max_err[name], "ms": loop_times[name]["ms"],
          "plain_ms": loop_times[name]["plain_ms"],
          "bound_ms": loop_times[name]["bound_ms"],
          "bound_by": loop_times[name]["bound_by"],
-         "library_ms": None,   # no PyTorch call runs a nonlinear feedback loop
-         "serial_ms": loop_times[name]["serial_ms"]}
+         # no PyTorch call runs a feedback loop or a linear recurrence
+         "library_ms": None,
+         "call_ms": loop_times[name]["call_ms"],
+         "path_samples": loop_times[name]["path_samples"],
+         "path_ms": loop_times[name]["path_ms"],
+         "path_call_ms": loop_times[name]["path_call_ms"],
+         "path_bound_ms": loop_times[name]["path_bound_ms"],
+         **({"serial_ms": loop_times[name]["serial_ms"]}
+            if name in cuda_dsp.SERIAL else {})}
         for name in cuda_dsp.KERNELS] + [
         {"name": cuda_dsp.TRACKER, "route": "cuda", "source": TRACK_SOURCE,
          "replaces": TRACK_REPLACES,

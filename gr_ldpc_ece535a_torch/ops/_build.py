@@ -151,9 +151,16 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         fns = {"dsp_agc_loop": [p, p, q,      # x, y (n,) complex64, n
                                 f, f,         # rate, reference
                                 p, p, p],     # g0, g out (f32 0-d), stream
+               "dsp_agc_scan": [p, p, q,      # x, y (n,) complex64, n
+                                f, f,         # rate, reference
+                                p, p,         # g0, g out (f32 0-d)
+                                p, p],        # scratch, stream
+               "dsp_agc_scan_scratch_bytes": [q],   # n
                "dsp_costas_loop": [p, p, q,   # x, y (n,) complex64, n
                                    f, f,      # alpha, beta
                                    p, p, p],  # (phase, freq) in, out, stream
+               # kind, first bit pattern, count, u64 mismatches, stream
+               "dsp_shortcut_check": [i, ctypes.c_uint, q, p, p],
                "dsp_error_string": [i]}
     elif name == "pfb_track":
         q = ctypes.c_longlong
@@ -197,6 +204,8 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                "bp_exact_error_string": [i]}
     for fn, args in fns.items():
         getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = (ctypes.c_char_p if fn.endswith("string")
-                                    else i)
+        getattr(lib, fn).restype = (
+            ctypes.c_char_p if fn.endswith("string")
+            else ctypes.c_longlong if fn == "dsp_agc_scan_scratch_bytes"
+            else i)
     return lib

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the receive DSP's feedback loops, built by
 ``ops/_build.py`` and loaded through ctypes: the streaming blocks'
-per-sample AGC (``agc_loop``) and BPSK Costas loop (``costas_loop``), from
+per-sample AGC (``agc_loop``: the ``agc_scan`` route, or the serial
+``agc_loop`` route) and BPSK Costas loop (``costas_loop``), from
 ``csrc/dsp_loops.cu``, and the polyphase clock tracker's block loop
 (``pfb_track``), from ``csrc/pfb_track.cu``.
 
@@ -14,7 +15,15 @@ a CPU tensor they run the plain versions beside them there (``agc_plain``,
 the two. The wrappers here take CUDA tensors only and raise on anything
 else, and on a launch the kernel refuses. Each launch adds one to
 ``LAUNCHES[kernel name]``; an empty stream launches nothing.
-``KERNELS`` names the two per-sample loops, ``TRACKER`` the block loop.
+
+The AGC has two routes, both kernels: the parallel affine scan
+(``agc_scan``, three launches counted as one), which holds where
+``scan_condition`` does, and the one-thread recurrence (``agc_loop``), bit
+for bit with the plain version, which the wrapper launches over the chunk
+from the same gain where the scan's flag says the condition failed.
+``SERIAL`` names the two one-thread recurrences (their chains are read
+off the SASS), ``SCAN`` the scan, ``KERNELS`` the three, ``TRACKER`` the
+block loop.
 """
 
 from __future__ import annotations
@@ -24,15 +33,44 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["agc_loop", "costas_loop", "pfb_track", "KERNELS", "TRACKER",
-           "LAUNCHES", "TILE", "TRACK_TILE"]
+__all__ = ["agc_loop", "costas_loop", "pfb_track", "scan_condition",
+           "shortcut_check", "KERNELS", "SERIAL", "SCAN", "TRACKER",
+           "LAUNCHES", "TILE", "SCAN_TILE", "STAGE", "UNROLL", "SINCOS",
+           "ALPHA_MAX",
+           "SHORTCUT_RANGES", "TRACK_TILE"]
 
 # kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
-KERNELS = ("agc_loop", "costas_loop")       # the per-sample loops
-TRACKER = "pfb_track"                       # the clock tracker's block loop
+SERIAL = ("agc_loop", "costas_loop")    # one thread's recurrence each
+SCAN = "agc_scan"                       # the AGC's parallel affine scan
+KERNELS = (SCAN, *SERIAL)               # the per-sample loops' kernels
+TRACKER = "pfb_track"                   # the clock tracker's block loop
 LAUNCHES = dict.fromkeys((*KERNELS, TRACKER), 0)
-TILE = 4096     # samples a block stages at a time: csrc/dsp_loops.cu's kTile
+# the constants of csrc/dsp_loops.cu that the checks and tools follow
+TILE = 4096     # samples agc_loop stages at a time: kTile
+SCAN_TILE = 4096    # samples a block of the scan: kScanTile
+STAGE = 1024    # samples a stage of costas_loop's ring: kStage
+UNROLL = {"agc_loop": 1, "costas_loop": 4}   # samples an iteration: kUnroll
+SINCOS = True   # costas_loop takes sincosf after its first sample: kSinCos
+# |alpha| costas_loop takes (its loop's wrap needs it): kAlphaMax; every
+# loop_bw gives |alpha| <= 2 + 2 sqrt 2
+ALPHA_MAX = 5.0
 TRACK_TILE = 2048   # symbols pfb_track stages at a time: its kTileSyms
+
+
+def _bits(v: float) -> int:
+    return int(np.array(v, np.float32).view(np.uint32))
+
+
+_NAN = ((0x7F800001, (1 << 23) - 1), (0xFF800001, (1 << 23) - 1))
+_INF = ((0x7F800000, 1), (0xFF800000, 1))
+# shortcut_check's float32 bit patterns (first, count) a kind: "wrap" every
+# float in [-2 pi, 4 pi) and every NaN (what the loop's wrap sees); "sincos"
+# every float in [-pi, pi], every infinity and NaN
+SHORTCUT_RANGES = {
+    "wrap": ((0x80000000, _bits(-2 * np.pi) - 0x80000000 + 1),
+             (0, _bits(np.float32(2 * np.pi) * 2)), *_NAN),
+    "sincos": ((0x80000000, _bits(-np.pi) - 0x80000000 + 1),
+               (0, _bits(np.pi) + 1), *_NAN, *_INF)}
 
 
 def _check(x: torch.Tensor, state: torch.Tensor, size: int) -> None:
@@ -48,42 +86,100 @@ def _check(x: torch.Tensor, state: torch.Tensor, size: int) -> None:
 
 
 def _launch(name: str, fn: str, x: torch.Tensor, a: float, b: float,
-            state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            state: torch.Tensor, y: torch.Tensor, out: torch.Tensor,
+            *extra) -> None:
     from ._build import load_library
 
-    y = torch.empty_like(x)
-    out = torch.empty_like(state)
-    if x.numel() == 0:
-        return y, out.copy_(state)
     lib = load_library("dsp_loops")
     with torch.cuda.device(x.device):
         err = getattr(lib, fn)(
             x.data_ptr(), y.data_ptr(), x.numel(), ctypes.c_float(a),
-            ctypes.c_float(b), state.data_ptr(), out.data_ptr(),
+            ctypes.c_float(b), state.data_ptr(), out.data_ptr(), *extra,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.dsp_error_string(err).decode()}")
     LAUNCHES[name] += 1
-    return y, out
+
+
+def scan_condition(x: torch.Tensor, rate: float, reference: float,
+                   gain0) -> bool:
+    """Whether the AGC over x from ``gain0`` may take the scan: every sample
+    finite with rate*|x| <= 1 (|x| as hypot), and gain0, rate and
+    rate*reference finite and >= 0, each taken as float32. The kernel
+    reduces this on the card (and also drops its flag where g*|x| reaches
+    1e38, which only its run shows); this is its plain version."""
+    r, ref = np.float32(rate), np.float32(reference)
+    c, g = r * ref, np.float32(float(gain0))
+    xr = torch.view_as_real(x.to(torch.complex64))
+    rh = torch.hypot(xr[:, 0], xr[:, 1]) * float(r)
+    return bool(torch.isfinite(xr).all() and (rh <= 1.0).all()
+                and all(np.isfinite(v) and v >= 0 for v in (g, r, c)))
 
 
 def agc_loop(x: torch.Tensor, rate: float, reference: float,
              gain0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """AGC over x (n,) complex64 on the card from the gain ``gain0`` (a
     float32 0-d tensor on x's device): (y, final gain as a 0-d tensor).
-    ``rate`` and ``reference`` are taken as float32."""
+    ``rate`` and ``reference`` are taken as float32. The scan first; where
+    its flag is down (read back: one sync a call), the serial kernel over
+    the chunk from the same gain, whose output replaces the scan's."""
     _check(x, gain0, 1)
-    return _launch("agc_loop", "dsp_agc_loop", x, rate, reference, gain0)
+    y = torch.empty_like(x)
+    out = torch.empty_like(gain0)
+    if x.numel() == 0:
+        return y, out.copy_(gain0)
+    from ._build import load_library
+
+    scratch = torch.empty(
+        load_library("dsp_loops").dsp_agc_scan_scratch_bytes(x.numel()),
+        dtype=torch.uint8, device=x.device)
+    _launch(SCAN, "dsp_agc_scan", x, rate, reference, gain0, y, out,
+            scratch.data_ptr())
+    if not int(scratch[-4:].view(torch.int32).item()):
+        _launch("agc_loop", "dsp_agc_loop", x, rate, reference, gain0, y, out)
+    return y, out
 
 
 def costas_loop(x: torch.Tensor, alpha: float, beta: float,
                 state0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Costas loop over x (n,) complex64 on the card with the float32 gains
     ``alpha`` and ``beta`` from ``state0`` = (phase, freq), float32 (2,) on
-    x's device: (y, the final (phase, freq) as a (2,) tensor)."""
+    x's device: (y, the final (phase, freq) as a (2,) tensor). The kernel's
+    bulk copies take 16-byte aligned samples: x off that is copied first.
+    Its wrap takes |alpha| <= ALPHA_MAX (every loop_bw's gains)."""
+    if not abs(alpha) <= ALPHA_MAX:
+        raise ValueError(f"costas_loop takes |alpha| <= {ALPHA_MAX}, not "
+                         f"{alpha}")
     _check(x, state0, 2)
-    return _launch("costas_loop", "dsp_costas_loop", x, alpha, beta, state0)
+    y = torch.empty_like(x)
+    out = torch.empty_like(state0)
+    if x.numel() == 0:
+        return y, out.copy_(state0)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    _launch("costas_loop", "dsp_costas_loop", x, alpha, beta, state0, y, out)
+    return y, out
+
+
+def shortcut_check(kind: str, device="cuda") -> int:
+    """Mismatches of a shortcut of the Costas kernel over every float32 of
+    SHORTCUT_RANGES[kind], on the card: "wrap", its loop's phase wrap (by
+    selects) against fmodf with the sign fix, each less pi; "sincos",
+    sincosf against sinf and cosf (the same bits, or a mismatch)."""
+    from ._build import load_library
+
+    lib = load_library("dsp_loops")
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        for first, count in SHORTCUT_RANGES[kind]:
+            err = lib.dsp_shortcut_check(("wrap", "sincos").index(kind),
+                                         first, count, out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"shortcut check failed: "
+                                   f"{lib.dsp_error_string(err).decode()}")
+    return int(out.item())
 
 
 def _f32(v: float) -> ctypes.c_float:

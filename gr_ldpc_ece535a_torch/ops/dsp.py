@@ -20,9 +20,10 @@ purpose:
 
 The per-sample recurrences ``agc`` and ``costas_loop``, which only the
 streaming blocks of ``blocks/dsp.py`` call, run on the card as the
-hand-written kernels of ``csrc/dsp_loops.cu`` (``ops/cuda_dsp.py``) and on
-the CPU as their plain versions here, per-sample loops in float32 in JAX's
-order of operations. The clock tracker's block loop runs on the card as
+hand-written kernels of ``csrc/dsp_loops.cu`` (``ops/cuda_dsp.py``; the
+AGC as a parallel affine scan where ``cuda_dsp.scan_condition`` holds, else
+as one thread's recurrence) and on the CPU as their plain versions here,
+per-sample loops in float32 in JAX's order of operations. The clock tracker's block loop runs on the card as
 the kernel of ``csrc/pfb_track.cu`` and on the CPU as
 ``_pfb_track_plain``, a torch step a block.
 """
@@ -234,11 +235,18 @@ def agc(x: torch.Tensor, rate: float = 1e-2, reference: float = 1.0,
         gain0=1.0):
     """agc_cc-style automatic gain control: out = x*g; g += rate*(ref-|out|).
 
-    Returns (out (n,) complex64, final gain as a float32 0-d tensor), so a
-    stream cut into chunks (each from the last one's gain) gives the output
-    of one call, bit for bit. ``gain0`` is a number or a 0-d tensor, taken
-    as float32, and so are ``rate`` and ``reference``. On a CUDA tensor the
-    ``agc_loop`` kernel, on a CPU tensor ``agc_plain``.
+    Returns (out (n,) complex64, final gain as a float32 0-d tensor).
+    ``gain0`` is a number or a 0-d tensor, taken as float32, and so are
+    ``rate`` and ``reference``. On a CPU tensor ``agc_plain``, so a stream
+    cut into chunks (each from the last one's gain) gives the output of one
+    call, bit for bit. On a CUDA tensor two routes, both kernels: where
+    ``cuda_dsp.scan_condition`` holds (finite samples, rate*|x| <= 1, a
+    gain, rate and rate*reference finite and >= 0), the gain is a linear
+    recurrence and the ``agc_scan`` kernel computes it as a parallel affine
+    scan, held to the plain version within 1e-5 relative on out and 1e-6 on
+    the gain (it rounds elsewhere; the same input gives the same bits on
+    every run); otherwise the ``agc_loop`` kernel, bit for bit with
+    ``agc_plain``.
     """
     x = _loop_input(x)
     g0 = _f32(gain0, x.device)

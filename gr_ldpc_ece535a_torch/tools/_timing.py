@@ -54,12 +54,12 @@ OPS_PER_EDGE = {"minsum": 10, "sumproduct": 14}
 # (a sine, a cosine, a square root, an fmod too):
 #   agc_loop     the complex product with g + 0i (4 products, 2 sums), |y|
 #                (2 products, a sum, a square root), ref - |y|, rate*(..),
-#                g + (..): 13
+#                g + (..): 13; agc_scan computes the same function: 13
 #   costas_loop  cos, sin, the complex product (4, 2), Re*Im, its clip (2),
 #                beta*err, its sum and clip (2), two sums and alpha*err,
 #                + pi, fmod, the sign fix, - pi: 22
 LOOP_BYTES_PER_SAMPLE = 16
-OPS_PER_SAMPLE = {"agc_loop": 13, "costas_loop": 22}
+OPS_PER_SAMPLE = {"agc_scan": 13, "agc_loop": 13, "costas_loop": 22}
 # the clock tracker's block loop (csrc/pfb_track.cu), a symbol: 12 dot
 # products of L taps (y and dy on two planes at three rows), each FMA two
 # operations; u and pw at the three rows (two products and a sum each: 18),

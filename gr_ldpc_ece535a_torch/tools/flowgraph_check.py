@@ -388,7 +388,8 @@ def dsp_chain(method: int, device, side: int | None = None,
         f"written {plots}, final state {dec.state}, sync log {lines[:6]}"
         f"{' ...' if len(lines) > 6 else ''} ({len(lines)} lines), launches "
         f"{ {k: n for k, n in launches.items() if n} }, {wall_s:.3f} s host "
-        f"clock")
+        f"clock, work() by block " + ", ".join(
+            f"{k} {t.wall_s:.4f}" for k, t in timed.items()) + " s")
     if dec.state == STATE_OUT_OF_SYNC or not any(
             line.startswith("IN SYNC") for line in lines):
         raise AssertionError(f"dsp chain, method {method}: the decoder did "
@@ -399,10 +400,15 @@ def dsp_chain(method: int, device, side: int | None = None,
     if plots is False:
         raise AssertionError(f"dsp chain, method {method}: a plot is missing")
     if cuda:
-        for name in ("agc_loop", "costas_loop", KERNEL[method]):
+        for name in (cuda_dsp.SCAN, "costas_loop", KERNEL[method]):
             if launches[name] < 1:
                 raise AssertionError(f"dsp chain, method {method}: {name} "
                                      f"was not launched")
+        # every AGC chunk of the chain meets the scan's condition
+        if launches["agc_loop"]:
+            raise AssertionError(f"dsp chain, method {method}: the AGC took "
+                                 f"its serial route {launches['agc_loop']} "
+                                 f"times")
         # the clock tracker: one launch a segment
         segments = blocks["timing"].segments
         if not segments or launches[cuda_dsp.TRACKER] != segments:

@@ -40,6 +40,7 @@ MODULES = [
     "gr_ldpc_ece535a_torch.tools.parity_f64",
     "gr_ldpc_ece535a_torch.tools.twovalid",
     "gr_ldpc_ece535a_torch.tools.pfb_track_check",
+    "gr_ldpc_ece535a_torch.tools.dsp_loops_check",
 ]
 
 

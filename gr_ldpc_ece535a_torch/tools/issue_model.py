@@ -49,15 +49,17 @@ for the check-major kernel, whose register tier reads no table and no
 The streaming blocks' loop kernels (csrc/dsp_loops.cu) are one serial
 recurrence a sample, so their floor is a latency, not a rate: ``loop_chain``
 reads the recurrence loop off a kernel's SASS (the largest loop closed by a
-backward branch that reads and writes shared memory, the tile, and holds
-no barrier), walks every path through its body
+backward branch that reads and writes shared memory, the tile or the ring's
+stage, and holds no barrier, mbarrier or bulk copy), walks every path
+through its body
 (both ways at each forward branch, into a called subroutine and back, an
 inner loop once), and takes the longest chain of dependent instructions
 from the registers live into the loop to their values at the back edge,
 each instruction counted at LOOP_LATENCY cycles (loads at 0: the sample
 comes from shared memory off the state's chain). The least such chain over
-the paths, times the samples, at the SM clock the kernel held, is the
-loop's serial floor (chip_smoke.py's serial_ms).
+the paths, over the samples an iteration runs (the loop's unroll,
+``cuda_dsp.UNROLL``), times the samples, at the SM clock the kernel held, is
+the loop's serial floor (chip_smoke.py's serial_ms).
 
 A model from static counts and published rates, not a profiler reading
 (ncu does not run where the card is).
@@ -139,6 +141,10 @@ _REG = re.compile(r"(?<![A-Za-z0-9_])(U?R\d+|U?P\d+)")
 _NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BRA", "BAR", "CALL", "RET",
             "EXIT", "BSSY", "BSYNC", "WARPSYNC", "NOP", "BPT", "MEMBAR")
 _LOADS = ("LDS", "LDG", "LDL", "LDC", "ULDC", "LD")
+# what no recurrence loop holds: block barriers, mbarrier operations, bulk
+# and tensor copies, their waits and proxy fences
+_SYNC_OPS = {"BAR", "SYNCS", "UBLKCP", "UTMALDG", "UTMASTG", "UTMACCTL",
+             "DEPBAR", "FENCE"}
 
 
 def sass_instructions(text: str) -> dict[str, list[tuple]]:
@@ -181,16 +187,20 @@ def _target(ops: list[str]) -> int:
     return int(ops[-1], 16)
 
 
-def loop_chain(instructions: list[tuple], limit: int = 1 << 20) -> dict:
+def loop_chain(instructions: list[tuple], samples: int = 1,
+               limit: int = 1 << 22) -> dict:
     """The serial floor of a recurrence kernel, from its SASS (one
-    function of sass_instructions): {"cycles": the least dependent chain
-    over the paths through the loop at LOOP_LATENCY a link, "links": its
-    instructions, "paths": paths walked, "head", "tail": the loop's
-    addresses, "body": instructions between them}. The loop is the
-    largest one closed by a backward branch whose body loads and stores
-    shared memory and holds no barrier (the tile's staging loops each
-    touch shared memory one way). Raises ValueError if there is none or
-    the walk passes ``limit`` instruction visits."""
+    function of sass_instructions) whose loop runs ``samples`` samples an
+    iteration (its unroll): {"cycles": the least dependent chain over the
+    paths through the loop at LOOP_LATENCY a link, a sample, "links": its
+    instructions a sample, "iteration_links": an iteration's, "samples",
+    "paths": paths walked, "head", "tail": the loop's addresses, "body":
+    instructions between them}. The loop is the largest one closed by a
+    backward branch whose body loads and stores shared memory and holds no
+    barrier, no mbarrier and no bulk copy (the tile's staging loops each
+    touch shared memory one way; a ring's stage loop waits on mbarriers
+    and issues the copies). Raises ValueError if there is none or the walk
+    passes ``limit`` instruction visits."""
     at = {a: i for i, (a, *_rest) in enumerate(instructions)}
     loops = []
     for i, (a, guard, op, ops) in enumerate(instructions):
@@ -198,7 +208,7 @@ def loop_chain(instructions: list[tuple], limit: int = 1 << 20) -> dict:
             head = at[_target(ops)]
             kinds = {o.split(".")[0] for _, _, o, _ in
                      instructions[head:i + 1]}
-            if {"LDS", "STS"} <= kinds and "BAR" not in kinds:
+            if {"LDS", "STS"} <= kinds and not kinds & _SYNC_OPS:
                 loops.append((i + 1 - head, head, i))
     if not loops:
         raise ValueError("no recurrence loop (shared memory read and "
@@ -248,7 +258,8 @@ def loop_chain(instructions: list[tuple], limit: int = 1 << 20) -> dict:
                 links[d] = max(links.get(d, 0), n) if guard else n
                 written.add(d)
             i += 1
-    return {"cycles": best * LOOP_LATENCY, "links": best, "paths": paths,
+    return {"cycles": best * LOOP_LATENCY / samples, "links": best / samples,
+            "iteration_links": best, "samples": samples, "paths": paths,
             "head": instructions[head][0], "tail": instructions[tail][0],
             "body": tail - head + 1}
 

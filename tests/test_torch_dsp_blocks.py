@@ -36,8 +36,10 @@ a repeated text whose tail is lost.
 """
 
 import contextlib
+import functools
 import io
 import math
+import re
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -280,14 +282,18 @@ def test_empty_streams_keep_the_state():
 def test_loop_check_on_the_cpu():
     """tools/dsp_loops_check.py, which chip_smoke.py drives on the card: on
     the CPU both sides are the plain version, and the chunking is held at
-    the card's own length and cuts (a partial last tile, each cut inside a
-    tile)."""
+    the card's own length and cuts (a partial last tile, scan tile and
+    Costas stage, which start at sample 2, and each cut inside all three)."""
     res = lc.check("cpu", lc.SAMPLES, log=lambda *a: None)
-    assert set(res) == set(cuda_dsp.KERNELS)
-    assert all(r["identical"] and r["chunked_identical"] for r in res.values())
-    assert res["agc_loop"]["pieces"] == [7, 4096, 4097, 8191]
-    assert lc.SAMPLES % cuda_dsp.TILE and all(c % cuda_dsp.TILE
-                                              for c in lc.CUTS)
+    assert set(res) == {cuda_dsp.SCAN, "costas_loop"}
+    assert all(r["agrees"] and r["chunked_agrees"] and r["repeat_identical"]
+               for r in res.values())
+    assert res["agc_scan"]["pieces"] == [7, 4096, 4097, 8191]
+    for size, start in ((cuda_dsp.TILE, 0), (cuda_dsp.SCAN_TILE, 0),
+                        (cuda_dsp.STAGE, 2)):
+        assert (lc.SAMPLES - start) % size
+        assert all((c - start) % size for c in lc.CUTS)
+    assert (lc.SAMPLES - 2) % cuda_dsp.STAGE % 2     # an odd last sample
     assert lc.impaired_stream(16).dtype == torch.complex64
 
 
@@ -315,38 +321,210 @@ def test_main_path_check_on_the_cpu():
     started from, and holds it: the block's output, the prefix, and the
     cut inside the last tile."""
     caps = _captured()
-    assert [c.name for c in caps] == list(cuda_dsp.KERNELS)
+    assert [c.name for c in caps] == [cuda_dsp.SCAN, "costas_loop"]
     assert [len(x) for x, _, _ in caps[0].chunks] == [5000, 9001]
     assert caps[0].chunks[0][1] == (1.0,)
     first = P.agc(_t(caps[0].chunks[0][0]), rate=0.02)
     assert caps[0].chunks[1][1] == (float(first[1]),)
     assert np.array_equal(caps[0].chunks[0][2], first[0].numpy())
     res = lc.check_main_path(caps, "cpu", prefix=1024, log=lambda *a: None)
-    rows = res["agc_loop"]["chunks"]
+    rows = res["agc_scan"]["chunks"]
     assert [r["cut"] for r in rows] == [4096 + lc.TAIL_CUT,
                                         8192 + lc.TAIL_CUT]
-    assert all(r["tail_identical"] and r["cut_identical"] for r in rows)
+    assert all(r["tail_agrees"] and r["cut_agrees"] and r["no_serial_route"]
+               for rr in res.values() for r in rr["chunks"])
+
+
+def _faulty(real, scale=None):
+    """``real`` (a loop's public function) wrong in a partial tile: its last
+    sample one ulp up, or times ``scale``, where x is not whole tiles."""
+
+    def faulty(x, *args, **kw):
+        y, st = real(x, *args, **kw)
+        if x.shape[0] % cuda_dsp.TILE:
+            y = y.clone()
+            re = (y[-1].real * scale if scale else
+                  torch.nextafter(y[-1].real, torch.tensor(9.0)))
+            y[-1] = torch.complex(re, y[-1].imag)
+        return y, st
+
+    return faulty
 
 
 def test_main_path_check_catches_a_partial_tile_fault(monkeypatch):
     """A kernel that is right on whole tiles and wrong in a partial one (its
     last sample off by one ulp there) is caught by the cut inside the last
-    tile, though the block's output and the prefix agree with it."""
-    real = P.agc
-
-    def faulty(x, *args, **kw):
-        y, g = real(x, *args, **kw)
-        if x.shape[0] % cuda_dsp.TILE:
-            y = y.clone()
-            y[-1] = torch.complex(torch.nextafter(y[-1].real,
-                                                  torch.tensor(9.0)),
-                                  y[-1].imag)
-        return y, g
-
-    monkeypatch.setattr(P, "agc", faulty)
+    tile, though the block's output and the prefix agree with it: the
+    Costas loop, held bit for bit."""
+    monkeypatch.setattr(P, "costas_loop", _faulty(P.costas_loop))
     caps = _captured()
-    with pytest.raises(AssertionError, match="agc_loop at the flowgraph"):
-        lc.check_main_path(caps[:1], "cpu", prefix=1024, log=lambda *a: None)
+    with pytest.raises(AssertionError, match="costas_loop at the flowgraph"):
+        lc.check_main_path(caps[1:], "cpu", prefix=1024, log=lambda *a: None)
+
+
+@pytest.mark.parametrize("scale, caught", [(1 + 4e-5, True),
+                                           (1 + 2e-6, False)])
+def test_main_path_check_holds_the_agc_to_the_scans_bar(monkeypatch, scale,
+                                                         caught):
+    """The AGC is held within the scan's bars (1e-5 relative a sample): a
+    partial-tile fault of 4e-5 is caught by the cut inside the last tile,
+    one of 2e-6 is inside the bar."""
+    monkeypatch.setattr(P, "agc", _faulty(P.agc, scale))
+    caps = _captured()
+    run = functools.partial(lc.check_main_path, caps[:1], "cpu",
+                            prefix=1024, log=lambda *a: None)
+    if caught:
+        with pytest.raises(AssertionError, match="agc_scan at the flowgraph"):
+            run()
+    else:
+        assert run()["agc_scan"]["chunks"]
+
+
+def test_loop_constants_are_the_kernels():
+    """ops/cuda_dsp.py's mirrors of csrc/dsp_loops.cu's constants, which
+    the checks cut by and the tools read."""
+    src = (Path(cuda_dsp.__file__).parents[1] / "csrc" / "dsp_loops.cu"
+           ).read_text()
+    items = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert items["kScanThreads"] * items["kScanItems"] == cuda_dsp.SCAN_TILE
+    assert "kScanTile = kScanThreads * kScanItems;" in src
+    assert items["kStage"] == cuda_dsp.STAGE
+    assert items["kUnroll"] == cuda_dsp.UNROLL["costas_loop"] == 4
+    assert "#pragma unroll 2  // kUnroll / 2 pairs an iteration" in src
+    assert cuda_dsp.UNROLL["agc_loop"] == 1
+    assert (f"constexpr bool kSinCos = {str(cuda_dsp.SINCOS).lower()};"
+            in src)
+    assert f"constexpr float kAlphaMax = {cuda_dsp.ALPHA_MAX}f;" in src
+
+
+def test_every_loop_bw_keeps_alpha_in_the_kernels_range():
+    """The Costas kernel's wrap takes |alpha| <= ALPHA_MAX; the gains of
+    every loop_bw stay under 2 + 2 sqrt 2 (its largest, at -1)."""
+    bws = np.concatenate([np.linspace(-50, 50, 20001), [-1.0, 1.0, 0.08]])
+    alphas = np.array([P.costas_gains(float(b))[0] for b in bws])
+    assert np.abs(alphas).max() <= 2 + 2 * math.sqrt(2) + 1e-6
+    assert np.abs(alphas).max() < cuda_dsp.ALPHA_MAX
+    with pytest.raises(ValueError, match="alpha"):
+        cuda_dsp.costas_loop(_t(_impaired(8)), 5.5, 0.01, torch.zeros(2))
+
+
+TWO_PI = np.float32(2 * np.pi)
+PI = np.float32(np.pi)
+
+
+def _floored_mod(a):
+    """fmodf(a, 2 pi) with the sign fix, in float32 (torch.remainder's)."""
+    m = np.fmod(a, TWO_PI)
+    return np.where((m != 0) & (m < 0), m + TWO_PI, m).astype(np.float32)
+
+
+def _wrap_select(a):
+    """The kernel's wrap_select in float32: one compare and one subtract or
+    add, by selects."""
+    hi, lo = a - TWO_PI, a + TWO_PI
+    return np.where(a >= TWO_PI, hi, np.where(a < 0, lo, a)).astype(
+        np.float32)
+
+
+def _mod_two_pi(a):
+    """The kernel's mod_two_pi: the selects on [-2 pi, 4 pi), fmodf with
+    the sign fix elsewhere."""
+    inside = (a >= -TWO_PI) & (a < 2 * TWO_PI)
+    return np.where(inside, _wrap_select(a), _floored_mod(a))
+
+
+def _bits(v):
+    return np.asarray(v, np.float32).view(np.uint32)
+
+
+def test_wrap_is_fmodf_on_its_range():
+    """The Costas kernel's wrap, less pi, is fmodf's with the sign fix less
+    pi, bit for bit: on every 997th float32 of [-2 pi, 4 pi) and at its
+    edges and NaN (the card checks every float there). Past the range the
+    selects part (at 4 pi exactly), which is why the first sample, whose
+    phase the caller gives, takes the guarded form."""
+    neg = np.arange(0x80000000, int(_bits(-TWO_PI)) + 1, 997,
+                    dtype=np.uint64).astype(np.uint32)
+    pos = np.arange(0, int(_bits(2 * TWO_PI)), 997,
+                    dtype=np.uint64).astype(np.uint32)
+    edges = np.array([0.0, -0.0, TWO_PI, -TWO_PI, PI, -PI, 1e-30, -1e-30,
+                      np.nextafter(2 * TWO_PI, np.float32(0)),
+                      np.nextafter(TWO_PI, np.float32(0)),
+                      np.nextafter(TWO_PI, np.float32(9)),
+                      np.nextafter(-TWO_PI, np.float32(0)),
+                      np.nan, -np.nan], np.float32)
+    a = np.concatenate([neg.view(np.float32), pos.view(np.float32), edges])
+    assert len(a) > 2_000_000
+    with np.errstate(invalid="ignore"):
+        got, want = _wrap_select(a) - PI, _floored_mod(a) - PI
+        assert np.array_equal(_bits(got), _bits(want))
+        out = np.array([2 * TWO_PI, np.inf, -np.inf, 1e30, -7.0, 13.0],
+                       np.float32)
+        assert not np.array_equal(_bits(_wrap_select(out[:1]) - PI),
+                                  _bits(_floored_mod(out[:1]) - PI))
+        assert np.array_equal(_bits(_mod_two_pi(out) - PI),
+                              _bits(_floored_mod(out) - PI))
+    # -2 pi: +0 from the selects, -0 from fmodf, the same after - pi
+    assert _bits(_wrap_select(-TWO_PI)) != _bits(_floored_mod(-TWO_PI))
+
+
+def test_scan_condition():
+    """The AGC's route condition, the plain version of what the scan
+    reduces on the card: finite samples with rate*|x| <= 1, and a gain,
+    rate and rate*reference finite and >= 0."""
+    x = _t(_impaired(4096))
+    ok = functools.partial(cuda_dsp.scan_condition, rate=0.02, reference=1.0)
+    assert ok(x, gain0=1.0) and ok(x, gain0=0.0) and ok(x, gain0=-0.0)
+    assert ok(x[:0], gain0=1.0)
+    for v in (complex(np.nan, 0), complex(0, np.inf), complex(-np.inf, 1)):
+        bad = x.clone()
+        bad[7] = v
+        assert not ok(bad, gain0=1.0)
+    burst = x.clone()
+    burst[100:108] *= 100.0          # |x| about 250: rate*|x| about 5
+    assert not ok(burst, gain0=1.0)
+    assert ok(x * 15.0, gain0=1.0) and not ok(x * 40.0, gain0=1.0)
+    for g0 in (-0.5, -1e-30, np.inf, np.nan):
+        assert not ok(x, gain0=g0)
+    assert not cuda_dsp.scan_condition(x, -0.02, 1.0, 1.0)
+    assert not cuda_dsp.scan_condition(x, 0.02, -1.0, 1.0)
+    assert not cuda_dsp.scan_condition(x, 0.02, np.inf, 1.0)
+    assert cuda_dsp.scan_condition(x, 0.0, 1.0, 1.0)
+    for name, _ in lc.SERIAL_INPUTS:
+        xs, g0 = lc.serial_input(name, "cpu")
+        assert not cuda_dsp.scan_condition(xs, 0.02, 1.0, g0), name
+
+
+def test_serial_route_check_on_the_cpu():
+    """tools/dsp_loops_check.serial_route: each of the three inputs fails
+    the scan's condition and (both sides the plain version here) matches
+    bit for bit; no kernel is launched on the CPU."""
+    before = dict(cuda_dsp.LAUNCHES)
+    res = lc.serial_route("cpu", log=lambda *a: None)
+    assert list(res) == [n for n, _ in lc.SERIAL_INPUTS]
+    assert all(r["identical"] and not r["condition"]
+               and r["serial_launches"] == 0 and r["max_abs_err"] == 0
+               for r in res.values())
+    assert cuda_dsp.LAUNCHES == before
+
+
+def test_within_is_the_scans_bar():
+    """lc.within: a sample 2e-5 off (relative) fails, 5e-6 passes; the gain
+    within 1e-6, relative past 1; non-finite output fails."""
+    y = _t(_impaired(64))
+    g = torch.tensor(0.4)
+    assert lc.within(y, y) and lc.within(y, y, (g,), (g,))
+    assert lc.within(y * (1 + 5e-6), y, (g,), (g,))
+    assert not lc.within(y * (1 + 2e-5), y)
+    assert lc.within(y, y, (g + 5e-7,), (g,))
+    assert not lc.within(y, y, (g + 2e-6,), (g,))
+    big = torch.tensor(40.0)
+    assert lc.within(y, y, (big + 2e-5,), (big,))
+    assert not lc.within(y, y, (big + 1e-4,), (big,))
+    nan = y.clone()
+    nan[3] = complex(np.nan, 0)
+    assert not lc.within(nan, nan)
 
 
 # -- the seven blocks, chunk by chunk ------------------------------------------
@@ -642,11 +820,19 @@ def test_recorded_stream_through_both_chains(recorded):
 
 @pytest.mark.gpu
 def test_loop_kernels_match_plain_versions_on_gpu():
+    """On the card: the Costas kernel bit for bit with its plain version,
+    the AGC's scan route within its bars (and the same bits on two runs),
+    its serial route bit for bit on the three inputs that take it, and the
+    Costas kernel's wrap and sincosf over every float of their ranges."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (chip_smoke.py runs the full check)")
     res = lc.check("cuda", lc.SAMPLES, log=lambda *a: None)
-    assert all(r["identical"] and r["state_identical"]
-               and r["chunked_identical"] for r in res.values())
+    assert all(r["agrees"] and r["chunked_agrees"] and r["repeat_identical"]
+               for r in res.values())
+    assert res[cuda_dsp.SCAN]["route"]
+    assert all(r["identical"] and r["serial_launches"] == 1
+               for r in lc.serial_route("cuda", log=lambda *a: None).values())
+    assert lc.shortcuts("cuda", log=lambda *a: None)["wrap"] == 0
     caps = [lc.LoopCapture(PBD.AgcBlock2(rate=0.02)),
             lc.LoopCapture(PBD.CostasLoopBlock(loop_bw=0.08))]
     for part in _chunks(_impaired(60000), [20011, 40000]):

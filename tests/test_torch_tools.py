@@ -1,7 +1,7 @@
 """The host side of the port's kernel tools, on the CPU.
 
-``tools/occupancy.py`` and ``tools/exact_probe.py`` build variants of the
-kernel sources by substituting text; ``tools/kernel_times.py`` compares the
+``tools/occupancy.py``, ``tools/exact_probe.py`` and ``tools/loop_probe.py``
+build variants of the kernel sources by substituting text; ``tools/kernel_times.py`` compares the
 kernels' times across checkouts; ``tools/issue_model.py`` counts the exact
 sum-product kernel's libm calls. Each times kernels or reads SASS on a
 card, so here: the substitutions still find their text in today's sources,
@@ -19,7 +19,8 @@ from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
 from gr_ldpc_ece535a_torch.ops import _build, cuda_bp
 from gr_ldpc_ece535a_torch.ops.layout import check_major_tables
 from gr_ldpc_ece535a_torch.tools import (exact_probe, issue_model,
-                                         kernel_times, occupancy, tile_probe)
+                                         kernel_times, loop_probe, occupancy,
+                                         tile_probe)
 
 TOOLS = {"occupancy": (occupancy, "bp_wmajor"),
          "exact_probe": (exact_probe, "bp_exact"),
@@ -381,3 +382,74 @@ def test_loop_chain_needs_a_recurrence_loop():
     ins = issue_model.sass_instructions(LOOP_SASS)["toy_loop_kernel"]
     with pytest.raises(ValueError, match="no recurrence loop"):
         issue_model.loop_chain([i for i in ins if i[2] != "STS.64"])
+
+
+# a recurrence loop of two samples an iteration (R2 carries the state: two
+# FMULs and two FADDs, 4 links an iteration), after a ring's stage loop
+# that waits on an mbarrier and issues a bulk copy (not the recurrence)
+UNROLLED_SASS = """
+\tFunction : toy_ring_kernel
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+        /*0020*/                   LDS.128 R8, [R16] ;
+        /*0030*/                   FMUL R12, R8, R2 ;
+        /*0040*/                   FADD R2, R12, R2 ;
+        /*0050*/                   FMUL R13, R10, R2 ;
+        /*0060*/                   FADD R2, R13, R2 ;
+        /*0070*/                   STS.128 [R16], R8 ;
+        /*0080*/                   VIADD R16, R16, 0x10 ;
+        /*0090*/                   ISETP.GE.AND P1, PT, R16, R30, PT ;
+        /*00a0*/              @!P1 BRA 0x20 ;
+        /*00b0*/                   UBLKCP.G.S [UR6], [UR8], UR10 ;
+        /*00c0*/              @!P2 BRA 0x10 ;
+        /*00d0*/                   EXIT ;
+"""
+
+
+def test_loop_chain_reports_a_sample_of_an_unrolled_loop():
+    """Two samples an iteration: 4 links an iteration are 2 a sample. The
+    stage loop around it holds the recurrence's LDS and STS too, but its
+    mbarrier wait and bulk copy mark it as the ring's, not the chain's."""
+    ins = issue_model.sass_instructions(UNROLLED_SASS)["toy_ring_kernel"]
+    r = issue_model.loop_chain(ins, samples=2)
+    assert (r["head"], r["tail"], r["body"]) == (0x20, 0xa0, 9)
+    assert (r["iteration_links"], r["links"], r["samples"]) == (4, 2.0, 2)
+    assert r["cycles"] == 2 * issue_model.LOOP_LATENCY
+    assert issue_model.loop_chain(ins)["cycles"] == (
+        4 * issue_model.LOOP_LATENCY)
+    # the mbarrier wait and the copy as NOPs: the stage loop is the largest
+    plain = [(a, g, "NOP", []) if op.startswith(("SYNCS", "UBLKCP"))
+             else (a, g, op, ops) for a, g, op, ops in ins]
+    assert issue_model.loop_chain(plain)["head"] == 0x10
+
+
+LOOP_PROBE = [(k, v) for k, vs in loop_probe.VARIANTS.items() for v in vs]
+
+
+@pytest.mark.parametrize("kernel,variant", LOOP_PROBE,
+                         ids=[f"{k}-{v}" for k, v in LOOP_PROBE])
+def test_loop_probe_variants_find_their_text(kernel, variant):
+    """Every loop_probe variant applies to today's csrc/dsp_loops.cu, each
+    substitution's text there once, and changes it (but "shipped")."""
+    src = _build.SOURCES["dsp_loops"].read_text()
+    text = loop_probe.variant_source(src,
+                                     loop_probe.VARIANTS[kernel][variant])
+    assert (text == src) == (variant == "shipped")
+
+
+def test_loop_probe_parent_form_is_the_parents_arithmetic():
+    """The parent form: fmodf with the sign fix on every sample and the two
+    calls, as the kernel before the redesign; a text gone raises."""
+    src = _build.SOURCES["dsp_loops"].read_text()
+    parent = loop_probe.variant_source(src, loop_probe.PARENT)
+    assert "phase = floored_mod(a, kTwoPi) - kPi;" in parent
+    assert "constexpr bool kSinCos = false;" in parent
+    with pytest.raises(ValueError, match="holds 0"):
+        loop_probe.variant_source(parent, ("two calls",))
+
+
+def test_loop_probe_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the CPU-only error path")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        loop_probe.main([])
