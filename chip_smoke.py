@@ -9,12 +9,15 @@ Phases, each of which raises on a miss:
               csrc/bp_study.cu, csrc/bp_study_ms.cu, csrc/dsp_loops.cu and
               csrc/pfb_track.cu, in parallel, into
               gr_ldpc_ece535a_torch/_build/; prints ptxas's summary and the
-              tracker kernel's shared memory and threads at the chain's
-              composed shape; reads each loop kernel's recurrence off its
-              SASS (tools/issue_model.py loop_chain: the least chain of
-              dependent instructions a sample over the paths through the
-              loop, 4 cycles a link; the Costas loop runs four samples an
-              iteration); counts
+              tracker kernel's launch at the chain's composed shape and on
+              an app segment (C CTAs a cluster, S symbols a thread,
+              threads, shared memory, and cudaOccupancyMaxActiveClusters,
+              which must be at least 1), the library's geometry held to
+              ops/cuda_dsp.py's mirror; reads each loop kernel's
+              recurrence off its SASS (tools/issue_model.py loop_chain: the
+              least chain of dependent instructions a sample over the paths
+              through the loop, 4 cycles a link; the Costas loop runs four
+              samples an iteration); counts
               each study kernel's static SASS instructions (cuobjdump) and
               fails unless every unrolled instance has more than its
               unroll-1 sibling; the SASS of the w-major SPA kernels'
@@ -94,9 +97,12 @@ Phases, each of which raises on a miss:
               over the chain's composed stream (2^24 samples, 1,022 blocks
               of 8,192) and over one DSP-flowgraph segment (126 blocks of
               64) bit for bit the kernel run one block a call from its own
-              returned state (symbols and final state); one launch over
-              the 64 blocks against the plain version's run printed (no
-              bar).
+              returned state (symbols and final state); the blocked route
+              bit for bit the per-symbol route (a build with every group on
+              the per-symbol loop), one launch each over 16 blocks at each
+              cluster size (64 to 8,192 symbols a block, C = 1 to 16); one
+              launch over the 64 blocks against the plain version's run
+              printed (no bar).
               The w-major kernels against their plain versions: identical
               decisions (min-sum, every comparison), or (SPA, whose log tanh
               runs on the SFU) the precise contracts: early exit at most
@@ -273,8 +279,9 @@ Phases, each of which raises on a miss:
               version by CUDA events at the chain's composed shape (2^24
               samples, 1,022 blocks of 8,192) and on one 16,384-sample
               segment of 64-symbol blocks, beside its bound
-              (tools/_timing.py track_bound_ms) and its one-SM floor (its
-              FMAs at 128 a clock, at the SM clock it held back to back);
+              (tools/_timing.py track_bound_ms), its one-SM floor (its
+              FMAs at 128 a clock, at the SM clock it held back to back)
+              and its C-SM floor (the one-SM floor over the cluster's C);
               the chain path's stages by CUDA events (block AGC, CFO, mix,
               the tracker in all and a block, V&V) in its three settings,
               the chain's samples a second by timing block (256-8,192, on
@@ -296,13 +303,15 @@ The loop kernels' records carry their times on 2^21 samples (path_ms),
 their public function's call beside the kernel (call_ms, path_call_ms) and
 the launches on each path that drives them; the serial ones
 serial_ms, their serial floor; the
-tracker's carries sm_floor_ms and its times on one app segment. The
+tracker's carries sm_floor_ms, cluster_floor_ms (over its C CTAs) and its
+times on one app segment. The
 line before the last is the kernels' JSON record, the one before it the
 card's name and power limit; the last line is the JSON result.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -310,6 +319,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -487,7 +497,11 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
+    # the tracker's route-bar builds (phase 3) compile beside the sources
+    route_build = threading.Thread(target=pfb_track_check.route_builds)
+    route_build.start()
     built = build()
+    route_build.join()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas:")
     regs, spills = {}, {}                    # study instance -> ptxas's numbers
@@ -565,13 +579,29 @@ def main() -> int:
                     f"{LOOP_LATENCY} a link; {regs.get(name)} registers")
     if set(chains) != set(cuda_dsp.SERIAL):
         raise AssertionError(f"loop kernels in the SASS: {sorted(chains)}")
+    # the tracker's launch at the paths' shapes: the library's geometry is
+    # the mirror's, and a cluster of its size fits the card
     tlib = load_library("pfb_track")
-    log(f"[build] pfb_track at the chain's composed shape (8,192 symbols a "
-        f"block, 2 samples a symbol, 32 phases, 23 taps, 32 window columns):"
-        f" {tlib.pfb_track_smem_bytes(8192, 2, 32, 23, 32)} B of shared "
-        f"memory, {tlib.pfb_track_threads(8192)} threads; at 64-symbol "
-        f"blocks {tlib.pfb_track_smem_bytes(64, 2, 32, 23, 28)} B, "
-        f"{tlib.pfb_track_threads(64)} threads")
+    for tag, B, rc in (("composed", 8192, 2.5e-4), ("segment", 64, 0.002)):
+        bank = dsp.polyphase_rrc_banks(2, 32)[0]
+        tloop = dsp._pfb_loop(1 << 24, bank.shape[1], 2, 32, B, rc)
+        geo = (ctypes.c_int * 9)()
+        tlib.pfb_track_geometry(B, 2, 32, tloop.ntaps, tloop.width,
+                                ctypes.c_float(rc),
+                                ctypes.c_float(tloop.gain), geo)
+        want = cuda_dsp.track_geometry(B, 2, 32, tloop.ntaps, tloop.width,
+                                       rc, tloop.gain)
+        if tuple(geo) != tuple(want):
+            raise AssertionError(f"pfb_track geometry {tuple(geo)}, the "
+                                 f"mirror's {tuple(want)}")
+        fits = cuda_dsp.track_clusters(tloop)
+        log(f"[build] pfb_track {tag} ({B} symbols a block, 2 samples a "
+            f"symbol, 32 phases, {tloop.ntaps} taps, {tloop.width} window "
+            f"columns): C {want.C} CTAs a cluster, S {want.S} symbols a "
+            f"thread, {want.threads} threads, {want.smem} B of shared "
+            f"memory a CTA, cudaOccupancyMaxActiveClusters {fits}")
+        if fits < 1:
+            raise AssertionError(f"no pfb_track cluster fits at {tag}")
     # the SPA kernels' log tanh(x/2): its SASS by pipe; its MUFU count sets
     # their SFU floor (sfu_ms, phase 5)
     phi_ops = shipped_phi(built["bp_wmajor"][0])
@@ -1866,11 +1896,17 @@ def main() -> int:
     mhz = float(np.median([c for c, _, _ in samples])) if samples else \
         float("nan")
     tc = track_times["composed"]
+    tc["C"] = cuda_dsp.track_geometry(
+        tb_c, loop_c.sps, loop_c.nfilts, loop_c.ntaps, loop_c.width, rc_c,
+        loop_c.gain).C
     tc["sm_floor_ms"] = tc["fmas"] / (SM_FMA_PER_CLOCK * mhz * 1e3)
+    tc["cluster_floor_ms"] = tc["sm_floor_ms"] / tc["C"]
     log(f"[times] {cuda_dsp.TRACKER} composed: back to back {call_ms:.4f} ms "
         f"a call at SM clock {mhz:.0f} MHz; {tc['fmas']:.4e} FMAs, one-SM "
-        f"floor {tc['sm_floor_ms']:.4f} ms at {SM_FMA_PER_CLOCK} a clock; "
-        f"kernel {tc['ms']:.4f} ms = {tc['ms'] / tc['sm_floor_ms']:.2f}x the "
+        f"floor {tc['sm_floor_ms']:.4f} ms at {SM_FMA_PER_CLOCK} a clock, "
+        f"{tc['C']}-SM floor {tc['cluster_floor_ms']:.4f} ms; kernel "
+        f"{tc['ms']:.4f} ms = {tc['ms'] / tc['sm_floor_ms']:.3f}x the one-SM "
+        f"floor, {tc['ms'] / tc['cluster_floor_ms']:.2f}x the {tc['C']}-SM "
         f"floor, plain {tc['plain_ms']:.4f} ms, bound {tc['bound_ms']:.6f} ms "
         f"({tc['bound_by']}) [{card}]")
     del track_shapes, xp_c, xpp_c, banks_c, st_c
@@ -1938,6 +1974,8 @@ def main() -> int:
          "bound_by": track_times["composed"]["bound_by"],
          "library_ms": None,   # no PyTorch call runs this feedback loop
          "sm_floor_ms": track_times["composed"]["sm_floor_ms"],
+         "C": track_times["composed"]["C"],
+         "cluster_floor_ms": track_times["composed"]["cluster_floor_ms"],
          "segment_ms": track_times["segment"]["ms"],
          "segment_plain_ms": track_times["segment"]["plain_ms"]}]}
     log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s, the "

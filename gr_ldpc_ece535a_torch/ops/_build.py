@@ -162,20 +162,26 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                # kind, first bit pattern, count, u64 mismatches, stream
                "dsp_shortcut_check": [i, ctypes.c_uint, q, p, p],
                "dsp_error_string": [i]}
-    elif name == "pfb_track":
+    elif name in ("pfb_track", "pfb_track_one_sm"):
         q = ctypes.c_longlong
-        fns = {"pfb_track": [p, q,            # x (2, n) f32 padded, n
-                             p, p,            # bank, dbank (nfilts, L) f32
-                             p, p, p,         # ibase (int64), frac, rate in
-                             p, p, p, p,      # ys (2, nblocks, B); state out
-                             i, i, i, i, i,   # nblocks, B, sps, nfilts, L
-                             i, i, i, q,      # d0, rows, width, last
-                             f, f, f, f, f,   # nfilts, B*sps, B, a, a*a
-                             f, f, f, f,      # 1/h, 1/(2 delta), qs, clip
-                             p],              # cudaStream_t
-               "pfb_track_smem_bytes": [i] * 5,   # B, sps, nfilts, L, width
-               "pfb_track_threads": [i],          # B
-               "pfb_track_error_string": [i]}
+        track_args = [p, q,                   # x (2, n) f32 padded, n
+                      p, p,                   # bank, dbank (nfilts, L) f32
+                      p, p, p,                # ibase (int64), frac, rate in
+                      p, p, p, p,             # ys (2, nblocks, B); state out
+                      i, i, i, i, i,          # nblocks, B, sps, nfilts, L
+                      i, i, i, q,             # d0, rows, width, last
+                      f, f, f, f, f,          # nfilts, B*sps, B, a, a*a
+                      f, f, f, f,             # 1/h, 1/(2 delta), qs, clip
+                      p]                      # cudaStream_t
+        fns = {"pfb_track": track_args, "pfb_track_error_string": [i]}
+        if name == "pfb_track":
+            # B, sps, nfilts, L, width, rate clip, a, int out[9] / int*
+            # for cudaOccupancyMaxActiveClusters
+            fns["pfb_track_geometry"] = [i] * 5 + [f, f, p]
+            fns["pfb_track_clusters"] = [i] * 5 + [f, f, p]
+        else:
+            fns["pfb_track_smem_bytes"] = [i] * 5  # B, sps, nfilts, L, width
+            fns["pfb_track_threads"] = [i]         # B
     elif name in ("bp_study", "bp_study_ms"):
         fns = {f"{name}_decode": [
                    i,           # instance (bp_study_find's index)
@@ -207,5 +213,5 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = (
             ctypes.c_char_p if fn.endswith("string")
             else ctypes.c_longlong if fn == "dsp_agc_scan_scratch_bytes"
-            else i)
+            else None if fn == "pfb_track_geometry" else i)
     return lib

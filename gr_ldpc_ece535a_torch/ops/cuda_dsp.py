@@ -29,6 +29,7 @@ block loop.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,7 +38,11 @@ __all__ = ["agc_loop", "costas_loop", "pfb_track", "scan_condition",
            "shortcut_check", "KERNELS", "SERIAL", "SCAN", "TRACKER",
            "LAUNCHES", "TILE", "SCAN_TILE", "STAGE", "UNROLL", "SINCOS",
            "ALPHA_MAX",
-           "SHORTCUT_RANGES", "TRACK_TILE"]
+           "SHORTCUT_RANGES", "TRACK_TILE", "TRACK_PAD", "TRACK_SUMS",
+           "TRACK_MAX_CLUSTER", "TRACK_CTA_SYMS", "TRACK_SYMS", "TRACK_NO_FIT",
+           "TrackGeometry", "track_cluster", "track_syms", "track_max_threads",
+           "track_margin",
+           "track_geometry", "track_span", "track_args", "track_clusters"]
 
 # kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
 SERIAL = ("agc_loop", "costas_loop")    # one thread's recurrence each
@@ -54,7 +59,87 @@ SINCOS = True   # costas_loop takes sincosf after its first sample: kSinCos
 # |alpha| costas_loop takes (its loop's wrap needs it): kAlphaMax; every
 # loop_bw gives |alpha| <= 2 + 2 sqrt 2
 ALPHA_MAX = 5.0
-TRACK_TILE = 2048   # symbols pfb_track stages at a time: its kTileSyms
+# the constants of csrc/pfb_track.cu that track_geometry mirrors
+TRACK_TILE = 2048       # symbols a staged window tile at most: kTileSyms
+TRACK_PAD = 2           # zero tap columns at each end of a row: kPad
+TRACK_SUMS = 12         # (u, pw) x three rows x two halves: kSums
+TRACK_MAX_CLUSTER = 16  # CTAs a block at most: kMaxCluster
+TRACK_CTA_SYMS = 512    # symbols a CTA at least, where C > 1: kCtaSyms
+TRACK_SYMS = 1          # symbols a thread: kSyms
+TRACK_NO_FIT = 100000   # the library's error where no cluster fits: kNoFit
+
+
+class TrackGeometry(NamedTuple):
+    """One ``pfb_track`` launch's shape (csrc/pfb_track.cu's ``geometry``):
+    C CTAs (one cluster) of ``threads`` threads, S symbols a thread; CTA c
+    takes block symbols [c*slice, (c + 1)*slice) in ``ntiles`` tiles of at
+    most ``tile``; the prefetch stages ``margin`` samples either side of
+    the predicted start; a staged phase plane holds ``planes`` float2
+    words, pads included; ``smem`` bytes of dynamic shared memory."""
+    C: int
+    S: int
+    slice: int
+    tile: int
+    ntiles: int
+    threads: int
+    margin: int
+    planes: int
+    smem: int
+
+
+def track_cluster(B: int) -> int:
+    """CTAs a block: the most, up to TRACK_MAX_CLUSTER, that split B into
+    power-of-two slices of TRACK_CTA_SYMS or more, else 1 (``cluster_for``)."""
+    c = TRACK_MAX_CLUSTER
+    while c > 1:
+        q = B // c
+        if B % c == 0 and q & (q - 1) == 0 and q >= TRACK_CTA_SYMS:
+            return c
+        c //= 2
+    return 1
+
+
+def track_syms(B: int, most: int = TRACK_SYMS) -> int:
+    """Symbols a thread: ``most`` (the source's kSyms) where it divides a
+    half, else 1 (``syms_for``)."""
+    return most if (B // 2) % most == 0 else 1
+
+
+def track_max_threads(S: int) -> int:
+    """Threads a CTA at most at S symbols a thread (the kernel's launch
+    bound ``max_threads``): 256 at 4, which leaves 255 registers a thread,
+    else 512 (128)."""
+    return 256 if S == 4 else 512
+
+
+def track_margin(B: int, sps: int, rate_clip: float, gain: float) -> int:
+    """Samples the prefetch stages either side of ibase + B*sps: ceil(B *
+    rate_clip + a*sps) + 2, in the kernel's float32 arithmetic."""
+    f = np.float32
+    return int(np.ceil(f(B) * f(rate_clip) + f(gain) * f(sps))) + 2
+
+
+def track_geometry(B: int, sps: int, nfilts: int, L: int, width: int,
+                   rate_clip: float, gain: float,
+                   most: int = TRACK_SYMS) -> TrackGeometry:
+    """The launch's shape at these parameters (``geometry`` in the source,
+    which ``pfb_track_geometry`` returns on the card); ``most`` is kSyms,
+    for a build that sets it otherwise."""
+    C = track_cluster(B)
+    slice_ = B // C
+    S = track_syms(B, most)
+    tile = min(slice_, TRACK_TILE, track_max_threads(S) * S)
+    ntiles = -(-slice_ // tile)
+    threads = -(-(-(-tile // S)) // 32) * 32
+    margin = track_margin(B, sps, rate_clip, gain)
+    words = tile + 1 + width // sps + -(-(2 * margin) // sps) + 1
+    planes = words + (words // S if S > 1 else 0) + 1
+    smem = (16 + 2 * TRACK_SUMS * 4 + 16
+            + 2 * TRACK_MAX_CLUSTER * TRACK_SUMS * 4
+            + nfilts * (L + 2 * TRACK_PAD) * 8
+            + 2 * sps * planes * 8 + ntiles * (threads // 32) * TRACK_SUMS * 4)
+    return TrackGeometry(C, S, slice_, tile, ntiles, threads, margin, planes,
+                         smem)
 
 
 def _bits(v: float) -> int:
@@ -222,6 +307,33 @@ def _check_track(xpp, bank, dbank, state, loop) -> None:
                          f"{xpp.device}")
 
 
+def track_span(ibase: int, B: int, sps: int, margin: int,
+               last: int) -> tuple[int, int]:
+    """The window starts the prefetch stages for the block after one that
+    starts from ``ibase``: clamp(ibase + B*sps -+ margin, 0, last), ibase
+    first held in [-2^61, 2^61] (the kernel's arithmetic)."""
+    lim = 1 << 61
+    nb = min(max(ibase, -lim), lim) + B * sps
+    return (min(max(nb - margin, 0), last), min(max(nb + margin, 0), last))
+
+
+def track_args(xpp: torch.Tensor, bank: torch.Tensor, dbank: torch.Tensor,
+               state, loop, ys: torch.Tensor, out) -> list:
+    """The arguments of the library's ``pfb_track`` before its stream: the
+    tensors' pointers (the state in and ``out``, three 0-d tensors, out),
+    the loop's geometry and its float32 scalars as the plain version
+    rounds them."""
+    return [xpp.data_ptr(), xpp.shape[1], bank.data_ptr(), dbank.data_ptr(),
+            *(t.data_ptr() for t in state), ys.data_ptr(),
+            *(t.data_ptr() for t in out), loop.nblocks, loop.block_syms,
+            loop.sps, loop.nfilts, loop.ntaps, loop.d0, loop.rows,
+            loop.width, loop.last, _f32(loop.nfilts),
+            _f32(loop.block_syms * loop.sps), _f32(loop.block_syms),
+            _f32(loop.gain), _f32(loop.gain * loop.gain),
+            _recip(loop.block_syms // 2), _recip(2.0 * (1.0 / loop.nfilts)),
+            _f32(loop.sps / (2.0 * np.pi)), _f32(loop.rate_clip)]
+
+
 def pfb_track(xpp: torch.Tensor, bank: torch.Tensor, dbank: torch.Tensor,
               state, loop) -> tuple[torch.Tensor, tuple]:
     """The clock tracker's block loop on the card: ``loop.nblocks`` blocks of
@@ -232,30 +344,46 @@ def pfb_track(xpp: torch.Tensor, bank: torch.Tensor, dbank: torch.Tensor,
     nblocks*block_syms) symbol planes and the final state as 0-d tensors;
     with no block it launches nothing and returns the state it was given."""
     _check_track(xpp, bank, dbank, state, loop)
-    B, sps, n = loop.block_syms, loop.sps, xpp.shape[1]
-    ys = torch.empty((2, loop.nblocks, B), dtype=torch.float32,
+    ys = torch.empty((2, loop.nblocks, loop.block_syms), dtype=torch.float32,
                      device=xpp.device)
     if loop.nblocks == 0:
         return ys.reshape(2, 0), tuple(state)
     from ._build import load_library
 
     lib = load_library("pfb_track")
-    ibase, frac, rate = (t.contiguous() for t in state)
-    out = [torch.empty_like(t).reshape(()) for t in (ibase, frac, rate)]
-    h = B // 2
+    state = tuple(t.contiguous() for t in state)
+    out = [torch.empty_like(t).reshape(()) for t in state]
     with torch.cuda.device(xpp.device):
-        err = lib.pfb_track(
-            xpp.data_ptr(), n, bank.data_ptr(), dbank.data_ptr(),
-            ibase.data_ptr(), frac.data_ptr(), rate.data_ptr(), ys.data_ptr(),
-            *(t.data_ptr() for t in out), loop.nblocks, B, sps, loop.nfilts,
-            loop.ntaps, loop.d0, loop.rows, loop.width, loop.last,
-            _f32(loop.nfilts), _f32(B * sps), _f32(B), _f32(loop.gain),
-            _f32(loop.gain * loop.gain), _recip(h),
-            _recip(2.0 * (1.0 / loop.nfilts)), _f32(sps / (2.0 * np.pi)),
-            _f32(loop.rate_clip),
-            torch.cuda.current_stream(xpp.device).cuda_stream)
+        _launch_track(lib, track_args(xpp, bank, dbank, state, loop, ys, out),
+                      torch.cuda.current_stream(xpp.device).cuda_stream)
+    return ys.reshape(2, -1), tuple(out)
+
+
+def _launch_track(lib, args: list, stream) -> None:
+    """``lib.pfb_track(*args, stream)``, counted; RuntimeError where the
+    library refuses it (a cluster that does not fit, a refused attribute,
+    the launch's own error): never a retry at another cluster size."""
+    err = lib.pfb_track(*args, stream)
     if err:
         raise RuntimeError(f"{TRACKER} launch failed: "
                            f"{lib.pfb_track_error_string(err).decode()}")
     LAUNCHES[TRACKER] += 1
-    return ys.reshape(2, -1), tuple(out)
+
+
+def track_clusters(loop, device="cuda") -> int:
+    """cudaOccupancyMaxActiveClusters of the launch ``loop`` (an
+    ``ops.dsp.PfbLoop``) would make, on the card, as the library checks it
+    before each launch; RuntimeError where the cluster does not fit.
+    Launches nothing."""
+    from ._build import load_library
+
+    lib = load_library("pfb_track")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(torch.device(device)):
+        err = lib.pfb_track_clusters(
+            loop.block_syms, loop.sps, loop.nfilts, loop.ntaps, loop.width,
+            _f32(loop.rate_clip), _f32(loop.gain), ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"{TRACKER} cluster check failed: "
+                           f"{lib.pfb_track_error_string(err).decode()}")
+    return n.value

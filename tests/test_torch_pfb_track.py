@@ -16,30 +16,46 @@ held here:
   whole window; both are transcribed here and must give the plain
   version's table (``_probe_taps(_ext_taps(...))``) row for row, exactly,
   at every r in [1, R - 2];
+- its geometry (``cuda_dsp.track_geometry``, the source's ``geometry``):
+  C from B alone, each CTA's slice inside one half, the threads and the
+  shared memory a CTA; and the pipelined loads of its blocked route,
+  which must read for each symbol and column what the per-symbol loop
+  reads;
+- its prefetch span (``cuda_dsp.track_span``): the next window's start
+  lies in it for every finite state and every tau the update can give,
+  and a NaN or saturated state falls outside it (the exact reload);
 - its wrapper's checks, which raise on a CPU tensor, a wrong dtype or
-  shape, a non-contiguous stream, a wrong state and an odd block;
+  shape, a non-contiguous stream, a wrong state and an odd block, and
+  raise RuntimeError, with no retry at another cluster size, where the
+  library refuses the launch;
 - the dispatch: the public functions run the plain version on a CPU tensor
   and launch nothing; a stream with no whole block keeps its state;
-- the check tool's run on the CPU (the plain version on both sides), and
-  faults its one-launch check catches.
+- the check tool's run on the CPU (the plain version on every side),
+  faults its one-launch check catches, the route bar's two builds and
+  the probe's variants (each finds its text in its source).
 
 The plain version's bars against JAX stay in tests/test_torch_dsp.py.
 """
 
 from pathlib import Path
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from gr_ldpc_ece535a_torch.blocks import dsp as PBD
 from gr_ldpc_ece535a_torch.ops import cuda_dsp
 from gr_ldpc_ece535a_torch.ops import dsp as P
 from gr_ldpc_ece535a_torch.tools import _timing
+from gr_ldpc_ece535a_torch.tools import pfb_probe as probe
 from gr_ldpc_ece535a_torch.tools import pfb_track_check as tc
 
 SPS, NFILTS = 2, 32
-KPAD = 2                      # csrc/pfb_track.cu's zero tap columns an end
+KPAD = cuda_dsp.TRACK_PAD     # csrc/pfb_track.cu's zero tap columns an end
 SHAPES = [(B, rc) for B in (64, 2048, 8192) for rc in (0.002, 2.5e-4)]
 
 
@@ -134,23 +150,201 @@ def test_kernel_addressing_is_the_plain_table(B, rc):
 def test_kernel_geometry(B, rc):
     """The loop's geometry is the plain version's: the window of a block
     (B + width/sps + 1)*sps samples, and the greatest start leaves it
-    inside the padded stream; the shared memory the wrapper would ask for
-    fits a block."""
+    inside the padded stream; the launch the wrapper would make fits a
+    CTA: C from B alone (1 at 64, at least 8 at 8,192), threads enough for
+    a tile's groups, its shared memory within 227 KB."""
     _, _, loop = _loop(B, rc, n=1 << 16)
     win_len = (B + loop.width // SPS + 1) * SPS
     assert loop.last + win_len == (1 << 16) + loop.d0
-    tile = min(B, cuda_dsp.TRACK_TILE)
-    smem = (NFILTS * (loop.ntaps + 2 * KPAD) * 8
-            + SPS * (tile + loop.width // SPS + 1) * 8 + 32 * 12 * 4)
-    assert smem <= 227 * 1024
+    g = cuda_dsp.track_geometry(B, SPS, NFILTS, loop.ntaps, loop.width, rc,
+                                loop.gain)
+    assert g.C == {64: 1, 2048: 4, 8192: 16}[B] and g.C * g.slice == B
+    assert g.threads * g.S >= g.tile and g.threads <= 1024
+    assert g.ntiles * g.tile >= g.slice and g.smem <= 227 * 1024
     assert loop.gain == float(np.clip(0.7 * B / 1024.0, 0.15, 0.7))
+
+
+@pytest.mark.parametrize("B", [2, 6, 64, 100, 256, 510, 512, 1000, 1024,
+                               2048, 3072, 4096, 6144, 8192, 16384, 32768,
+                               65536, 1 << 17])
+@pytest.mark.parametrize("rc", [0.002, 2.5e-4])
+def test_track_geometry_follows_the_rules(B, rc):
+    """For every B: C depends on B alone, is a power of two up to
+    TRACK_MAX_CLUSTER, and slices B into power-of-two slices of
+    TRACK_CTA_SYMS or more, each inside one half; S is kSyms (the shipped
+    TRACK_SYMS and the route bar's 4) where it divides a half, else 1; a
+    tile's groups fit the threads (the launch bound); a staged plane holds
+    the tile's window and the prefetch's span; the shared memory a CTA
+    stays within 227 KB."""
+    _, _, loop = _loop(B, rc, n=1 << 22)
+    for most in sorted({cuda_dsp.TRACK_SYMS, 4}):
+        _geometry_rules(B, rc, loop, most)
+
+
+def _geometry_rules(B, rc, loop, most):
+    g = cuda_dsp.track_geometry(B, SPS, NFILTS, loop.ntaps, loop.width, rc,
+                                loop.gain, most)
+    assert g.C == cuda_dsp.track_cluster(B)
+    assert g.C in (1, 2, 4, 8, 16) and g.C * g.slice == B
+    if g.C > 1:
+        assert g.slice & (g.slice - 1) == 0
+        assert g.slice >= cuda_dsp.TRACK_CTA_SYMS
+        # every slice inside one half: the half boundary is a slice boundary
+        assert (B // 2) % g.slice == 0
+    assert g.S == (most if (B // 2) % most == 0 else 1)
+    assert g.threads % 32 == 0 and g.threads * g.S >= g.tile
+    assert g.threads <= cuda_dsp.track_max_threads(g.S) <= 512
+    assert g.tile <= cuda_dsp.TRACK_TILE and g.ntiles * g.tile >= g.slice
+    assert g.margin == cuda_dsp.track_margin(B, SPS, rc, loop.gain) >= 2
+    # a staged plane: tile + 1 + width/sps words and the span's 2*margin
+    # samples, pads included
+    words = g.tile + 1 + loop.width // SPS + -(-2 * g.margin // SPS)
+    assert g.planes >= words + (words // g.S if g.S > 1 else 0)
+    assert g.smem <= 227 * 1024
 
 
 def test_kernel_constants_are_the_sources():
     src = (Path(cuda_dsp.__file__).parents[1] / "csrc" / "pfb_track.cu"
            ).read_text()
-    assert f"constexpr int kTileSyms = {cuda_dsp.TRACK_TILE};" in src
-    assert f"constexpr int kPad = {KPAD};" in src
+    for name, value in (("kTileSyms", cuda_dsp.TRACK_TILE),
+                        ("kSums", cuda_dsp.TRACK_SUMS),
+                        ("kPad", cuda_dsp.TRACK_PAD),
+                        ("kMaxCluster", cuda_dsp.TRACK_MAX_CLUSTER),
+                        ("kCtaSyms", cuda_dsp.TRACK_CTA_SYMS),
+                        ("kSyms", cuda_dsp.TRACK_SYMS),
+                        ("kNoFit", cuda_dsp.TRACK_NO_FIT)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert "constexpr bool kBlocked = true;" in src
+    assert "constexpr bool kPrefetch = true;" in src
+    assert "return S == 4 ? 256 : 512;" in src
+
+
+def _per_symbol_reads(S, sps, d, delta, g, L):
+    """The per-symbol loop's (plane, word) for each symbol s and column c:
+    q = delta + (g + s + 1)*sps + d - 1 + c."""
+    return {(s, c): ((q := delta + (g + s + 1) * sps + d - 1 + c) % sps,
+                     q // sps)
+            for s in range(S) for c in range(L + 2)}
+
+
+def _columns_reads(N, sps, d, delta, g, L):
+    """The pipelined column loop's reads, transcribed (csrc/pfb_track.cu's
+    ``columns``): the N words loaded for column c + 1 before column c's
+    products, then rotated in; {(n, c): the word symbol n's products at
+    column c use}."""
+    ncol, q0 = L + 2, delta + (g + 1) * sps + d - 1
+    ph, off = q0 % sps, q0 // sps
+    w = [(ph, off + n) for n in range(N)]
+    out = {}
+    for c in range(ncol):
+        ph += 1
+        if ph == sps:
+            ph, off = 0, off + 1
+        wn = list(w)
+        if c + 1 < ncol:
+            wn = [(ph, off + n) for n in range(N)]
+        for n in range(N):
+            out[n, c] = w[n]
+        w = wn
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("sps", [1, 2, 3, 4])
+def test_blocked_route_reads_what_the_per_symbol_route_reads(S, sps):
+    """For each symbol of a group and each column, the blocked route's
+    pipelined loads give the word the per-symbol loop reads (its own
+    columns from q0 + s*sps, one symbol at a time), at every row column d,
+    prefetch offset delta and group start, for L = 23 and 21."""
+    for L in (23, 21):
+        for d in range(0, 9):
+            for delta in (0, 1, 5):
+                for g in (0, S, 7 * S):
+                    blocked = _columns_reads(S, sps, d, delta, g, L)
+                    alone = {(s, c): w for s in range(S) for (_, c), w in
+                             _columns_reads(1, sps, d, delta, g + s,
+                                            L).items()}
+                    assert blocked == alone == \
+                        _per_symbol_reads(S, sps, d, delta, g, L)
+
+
+def _phys(w, S):
+    return w + w // S if S > 1 else w
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_padded_plane_has_no_bank_conflicts(S):
+    """A warp's load of one word a lane, lane l at word w0 + l*S (its
+    group's), hits 16 distinct 8-byte slots of a 128-byte line in each
+    half-warp, at every offset w0."""
+    for w0 in range(64):
+        for half in (range(16), range(16, 32)):
+            slots = {_phys(w0 + lane * S, S) % 16 for lane in half}
+            assert len(slots) == 16
+
+
+def _f32(v):
+    return np.float32(v)
+
+
+def _next_ibase(ibase, frac, rate, tau1, tau2, B, sps, rc, a):
+    """The kernel's update from the taus on, in float32 (csrc/pfb_track.cu
+    ``update``): the next ibase, NaN's step 0 and a saturated step's wrap
+    as cvt.rzi and the int64 sum give them."""
+    f = _f32
+    with np.errstate(all="ignore"):
+        inv_h = f(1.0) / f(B // 2)
+        rn = f(rate) - (f(a * a) * (f(tau2) - f(tau1))) * inv_h
+        rn = f(-rc) if rn < f(-rc) else (f(rc) if rn > f(rc) else rn)
+        tau_end = f(tau2) + f(0.5) * (f(tau2) - f(tau1))
+        adv = ((f(frac) + f(B * sps)) + f(B) * rn) - f(a) * tau_end
+        step = np.floor(adv)
+    if np.isnan(step):
+        k = 0
+    elif step >= 2.0 ** 63:
+        k = (1 << 63) - 1
+    elif step <= -2.0 ** 63:
+        k = -(1 << 63)
+    else:
+        k = int(step)
+    v = (ibase + k) & ((1 << 64) - 1)
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _clamp(i, last):
+    return min(max(i, 0), last)
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.sampled_from(SHAPES), st.integers(-10 ** 6, 1 << 22),
+       st.floats(0.0, 1.0, width=32, exclude_max=True),
+       st.floats(-1.0, 1.0), st.floats(-1.0, 1.0), st.floats(-1.0, 1.0))
+def test_prefetch_span_holds_the_next_start(shape, ibase, frac, r, t1, t2):
+    """For every finite state (frac in [0, 1), |rate| <= rate_clip, any
+    ibase) and taus in qs*[-pi, pi] as atan2f gives them, the next block's
+    clamped start lies in the staged span."""
+    B, rc = shape
+    _, _, loop = _loop(B, rc, n=1 << 22)
+    margin = cuda_dsp.track_margin(B, SPS, rc, loop.gain)
+    qpi = _f32(SPS / (2.0 * np.pi)) * _f32(np.pi)     # |tau| at most
+    nxt = _next_ibase(ibase, frac, _f32(r * rc), _f32(t1 * qpi),
+                      _f32(t2 * qpi), B, SPS, rc, loop.gain)
+    lo, hi = cuda_dsp.track_span(ibase, B, SPS, margin, loop.last)
+    assert lo <= _clamp(nxt, loop.last) <= hi
+
+
+@pytest.mark.parametrize("B,rc", SHAPES)
+@pytest.mark.parametrize("frac", [np.nan, np.inf])
+def test_a_nan_or_saturated_state_misses_the_span(B, rc, frac):
+    """A NaN state steps 0 (the window stays), a saturated one wraps to the
+    far end: either start falls outside the span, so the kernel loads the
+    exact window on the chain."""
+    _, _, loop = _loop(B, rc, n=1 << 22)
+    margin = cuda_dsp.track_margin(B, SPS, rc, loop.gain)
+    for ibase in (1, 1000, loop.last // 2):
+        nxt = _next_ibase(ibase, frac, 0.0, 0.0, 0.0, B, SPS, rc, loop.gain)
+        lo, hi = cuda_dsp.track_span(ibase, B, SPS, margin, loop.last)
+        assert not lo <= _clamp(nxt, loop.last) <= hi
 
 
 def _inputs(B=64, rc=0.002, n=4096):
@@ -239,7 +433,8 @@ def test_check_tool_on_the_cpu():
     res = tc.check("cpu", frames=1024, blocks=3, main_frames=512,
                    log=lambda *a: None)
     assert set(res) == {"B=64", "B=2048", "B=8192", "one launch, composed",
-                        "one launch, segment", "non-finite", "short"}
+                        "one launch, segment", "routes", "non-finite",
+                        "short"}
     for B, _ in tc.CASES:
         rec = res[f"B={B}"]
         assert rec["ok"] and rec["blocks"] == 3 and rec["max_abs_err"] == 0.0
@@ -251,6 +446,9 @@ def test_check_tool_on_the_cpu():
     assert res["one launch, composed"]["blocks"] >= 2
     for name in ("one launch, composed", "one launch, segment"):
         assert res[name]["ok"] and res[name]["first_unequal_block"] is None
+    assert res["routes"]["ok"]
+    assert sorted({r["C"] for k, r in res["routes"].items() if k != "ok"}) \
+        == [1, 2, 4, 8, 16]
     assert res["non-finite"]["ok"] and res["non-finite"]["nan_blocks"] > 0
     assert res["short"]["ok"] and res["short"]["symbols"] == 0
 
@@ -298,6 +496,71 @@ def test_one_launch_check_catches_a_wrong_kernel(monkeypatch, fault):
     else:
         assert rec["first_unequal_block"] == {"second plane": 1,
                                               "last symbol": 39}[fault]
+
+
+class _RefusingLibrary:
+    """A library whose launch reports that no cluster fits."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def pfb_track(self, *args):
+        self.calls += 1
+        return cuda_dsp.TRACK_NO_FIT
+
+    def pfb_track_error_string(self, err):
+        assert err == cuda_dsp.TRACK_NO_FIT
+        return b"no cluster of the tracker's shape fits the card"
+
+
+def test_refused_cluster_launch_raises_without_a_retry():
+    """Where the library refuses the launch (no cluster of its size fits,
+    or the non-portable size is refused), the wrapper raises RuntimeError
+    after one call: no retry at C = 1, no launch counted."""
+    lib = _RefusingLibrary()
+    before = dict(cuda_dsp.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        cuda_dsp._launch_track(lib, [0] * 29, None)
+    assert lib.calls == 1 and cuda_dsp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("design,variant", [
+    (d, v) for d in probe.VARIANTS for v in probe.VARIANTS[d]])
+def test_probe_variants_find_their_text(design, variant):
+    """Each of tools/pfb_probe.py's variants turns its knob (or stubs its
+    part) in its design's source, found there once; "as built" is the
+    source itself."""
+    src = (probe.PARENT_SOURCE if design == "parent"
+           else probe._build.SOURCES["pfb_track"]).read_text()
+    text = probe.variant_source(src, design, variant)
+    assert (text == src) == (variant == "as built")
+
+
+def test_probe_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        probe.main([])
+
+
+def test_route_builds_turn_the_route_knobs(monkeypatch):
+    """The route bar's two builds: kSyms = ROUTE_SYMS with the blocked
+    route, and the same with kBlocked false; nothing else changes."""
+    seen = {}
+
+    def fake(name, texts):
+        seen[name] = list(texts)
+        return [object() for _ in texts]
+
+    monkeypatch.setattr(probe._build, "load_variants", fake)
+    libs = tc.route_builds()
+    assert set(libs) == {"blocked", "per-symbol"}
+    src = probe._build.SOURCES["pfb_track"].read_text()
+    blocked, alone = seen["pfb_track"]
+    syms = f"constexpr int kSyms = {tc.ROUTE_SYMS};"
+    assert syms in blocked and "constexpr bool kBlocked = true;" in blocked
+    assert alone == blocked.replace("constexpr bool kBlocked = true;",
+                                    "constexpr bool kBlocked = false;")
+    assert blocked.replace(syms, "constexpr int kSyms = 1;") == src
 
 
 def test_clock_sync_block_counts_its_segments(monkeypatch):
@@ -349,3 +612,19 @@ def test_track_kernel_matches_plain_version_on_gpu():
     before = cuda_dsp.LAUNCHES[cuda_dsp.TRACKER]
     P.pfb_clock_sync_pairs(xp, sps=SPS)
     assert cuda_dsp.LAUNCHES[cuda_dsp.TRACKER] - before == 1
+    # the blocked route against the per-symbol route, bit for bit, at each
+    # cluster size; and each cluster fits the card
+    rec = tc.routes(xp)
+    assert rec["ok"], rec
+    assert sorted({r["C"] for k, r in rec.items() if k != "ok"}) == \
+        [1, 2, 4, 8, 16]
+    for B, rc in tc.ROUTE_SHAPES:
+        loop = tc.setup(xp, B, rc)[3]
+        assert cuda_dsp.track_clusters(loop) >= 1
+        g = (ctypes.c_int * 9)()
+        from gr_ldpc_ece535a_torch.ops._build import load_library
+        load_library("pfb_track").pfb_track_geometry(
+            B, loop.sps, loop.nfilts, loop.ntaps, loop.width,
+            ctypes.c_float(rc), ctypes.c_float(loop.gain), g)
+        assert tuple(g) == cuda_dsp.track_geometry(
+            B, loop.sps, loop.nfilts, loop.ntaps, loop.width, rc, loop.gain)
