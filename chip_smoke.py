@@ -10,8 +10,8 @@ Phases, each of which raises on a miss:
               csrc/pfb_track.cu, in parallel, into
               gr_ldpc_ece535a_torch/_build/; prints ptxas's summary and the
               tracker kernel's launch at the chain's composed shape and on
-              an app segment (C CTAs a cluster, S symbols a thread,
-              threads, shared memory, and cudaOccupancyMaxActiveClusters,
+              an app segment (C CTAs a cluster, threads, shared memory,
+              and cudaOccupancyMaxActiveClusters,
               which must be at least 1), the library's geometry held to
               ops/cuda_dsp.py's mirror; reads each loop kernel's
               recurrence off its SASS (tools/issue_model.py loop_chain: the
@@ -97,12 +97,10 @@ Phases, each of which raises on a miss:
               over the chain's composed stream (2^24 samples, 1,022 blocks
               of 8,192) and over one DSP-flowgraph segment (126 blocks of
               64) bit for bit the kernel run one block a call from its own
-              returned state (symbols and final state); the blocked route
-              bit for bit the per-symbol route (a build with every group on
-              the per-symbol loop), one launch each over 16 blocks at each
-              cluster size (64 to 8,192 symbols a block, C = 1 to 16); one
-              launch over the 64 blocks against the plain version's run
-              printed (no bar).
+              returned state (symbols and final state); at each cluster
+              size (C = 1, 2, 4, 8, 16: 64 to 8,192 symbols a block) the
+              same two bars over 16 blocks; one launch over the 64 blocks
+              against the plain version's run printed (no bar).
               The w-major kernels against their plain versions: identical
               decisions (min-sum, every comparison), or (SPA, whose log tanh
               runs on the SFU) the precise contracts: early exit at most
@@ -319,7 +317,6 @@ import math
 import re
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
@@ -497,11 +494,7 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    # the tracker's route-bar builds (phase 3) compile beside the sources
-    route_build = threading.Thread(target=pfb_track_check.route_builds)
-    route_build.start()
     built = build()
-    route_build.join()
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas:")
     regs, spills = {}, {}                    # study instance -> ptxas's numbers
@@ -585,7 +578,7 @@ def main() -> int:
     for tag, B, rc in (("composed", 8192, 2.5e-4), ("segment", 64, 0.002)):
         bank = dsp.polyphase_rrc_banks(2, 32)[0]
         tloop = dsp._pfb_loop(1 << 24, bank.shape[1], 2, 32, B, rc)
-        geo = (ctypes.c_int * 9)()
+        geo = (ctypes.c_int * 8)()
         tlib.pfb_track_geometry(B, 2, 32, tloop.ntaps, tloop.width,
                                 ctypes.c_float(rc),
                                 ctypes.c_float(tloop.gain), geo)
@@ -597,9 +590,9 @@ def main() -> int:
         fits = cuda_dsp.track_clusters(tloop)
         log(f"[build] pfb_track {tag} ({B} symbols a block, 2 samples a "
             f"symbol, 32 phases, {tloop.ntaps} taps, {tloop.width} window "
-            f"columns): C {want.C} CTAs a cluster, S {want.S} symbols a "
-            f"thread, {want.threads} threads, {want.smem} B of shared "
-            f"memory a CTA, cudaOccupancyMaxActiveClusters {fits}")
+            f"columns): C {want.C} CTAs a cluster, {want.threads} threads, "
+            f"{want.smem} B of shared memory a CTA, "
+            f"cudaOccupancyMaxActiveClusters {fits}")
         if fits < 1:
             raise AssertionError(f"no pfb_track cluster fits at {tag}")
     # the SPA kernels' log tanh(x/2): its SASS by pipe; its MUFU count sets
@@ -1154,7 +1147,8 @@ def main() -> int:
     dsp_loops_check.shortcuts(dev, log=log)
     # the clock tracker's kernel against its plain version, a block a call
     # along the plain version's trajectory, and one launch at the main
-    # path's shapes against the kernel a block a call
+    # path's shapes against the kernel a block a call, both at each cluster
+    # size
     track_res = pfb_track_check.check(dev, log=log)
     max_err[cuda_dsp.TRACKER] = max(
         r["max_abs_err"] for r in track_res.values() if "max_abs_err" in r)

@@ -37,27 +37,16 @@
 //   alternate with the block's parity, and a rank's next push waits on
 //   every rank's last, so neither is overwritten while it is read. With C
 //   = 1 every thread takes the update itself, from its CTA's slot.
+// - a thread a symbol, a CTA at most kTileSyms of them at a time. (Several
+//   symbols a thread over one shared tap row measured slower at every shape
+//   the paths take: fewer warps are left to hide the loads; PERF.md.)
 // - the half sums are one balanced binary tree over each half's symbols in
-//   index order (a thread's S symbols, then the lanes of a warp by xor 1,
-//   2, 4, 8, 16, then the warps, then the ranks; a missing term is -0, the
-//   exact identity): the same bits whatever C and S, where B is a power of
-//   two (every B that takes a cluster).
+//   index order (the lanes of a warp by xor 1, 2, 4, 8, 16, then the warps,
+//   then the ranks; a missing term is -0, the exact identity): the same bits
+//   whatever C, where B is a power of two (every B that takes a cluster).
 // - the update's six divisions and two atan2f on six and two lanes of the
 //   warp that takes it, shuffled to every lane: the same scalars, fewer of
 //   them on the chain.
-// - kSyms symbols a thread (syms_for). At S > 1, where every group
-//   of a warp shares one row (r is monotone in k), the blocked route loads
-//   a column's tap triple once for the S symbols and each symbol's sample,
-//   the next column's loads ahead of this column's products; else the
-//   warp takes the per-symbol loop (a warp-wide choice, so no lane waits
-//   on another's route). Both keep the column order and fmaf, so a
-//   symbol's y and dy are the same bits on either route, and a pad word
-//   every S words keeps a warp's window loads free of bank conflicts. The
-//   blocked route measured slower than a symbol a thread at every shape
-//   the paths take (PERF.md; it leaves fewer warps to hide the loads'
-//   latency), so kSyms is 1; tools/pfb_track_check.py
-//   holds both routes, built at kSyms = 4, to the shipped kernel bit for
-//   bit, and tools/pfb_probe.py times them.
 // - the next block's window staged by cp.async while this block's dot
 //   products run: its start lies within margin = ceil(B*rate_clip +
 //   a*sps) + 2 samples of ibase + B*sps for a finite state (|tau| <= sps/2,
@@ -68,6 +57,8 @@
 // - each block's outputs are stored after its sums are published, and
 //   integer division by sps and nfilts is a shift where they are powers of
 //   two.
+// - the kernel's attributes and the cluster's fit are settled once for each
+//   device and launch shape (``fit``), not before every launch.
 
 // Rounding, held against the plain version on the card (tools/
 // pfb_track_check.py): built with --fmad=false (ops/_build.py), so every
@@ -88,22 +79,19 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
-constexpr int kTileSyms = 2048;        // symbols a staged window tile at most
+constexpr int kTileSyms = 512;         // symbols (threads) a tile at most
 constexpr int kSums = 12;              // (u, pw) x three rows x two halves
 constexpr int kPad = 2;                // zero tap columns at each end
 constexpr int kMaxCluster = 16;        // CTAs a block at most (non-portable)
 constexpr int kCtaSyms = 512;          // symbols a CTA at least, where C > 1
-constexpr int kSyms = 1;               // symbols a thread at most
-constexpr bool kBlocked = true;        // the blocked route (else per symbol)
 constexpr bool kPrefetch = true;       // the next window staged off the chain
 constexpr int kNoFit = 100000;         // error: the cluster does not fit
-
-__host__ __device__ constexpr int max_threads(int S) {
-  return S == 4 ? 256 : 512;           // 255 registers a thread, 128
-}
 
 __host__ __device__ constexpr bool pow2(int v) {
   return v > 0 && (v & (v - 1)) == 0;
@@ -117,13 +105,8 @@ __host__ __device__ int cluster_for(int B) {
   return 1;
 }
 
-// symbols a thread: kSyms where it divides a half, else 1
-__host__ __device__ int syms_for(int B) {
-  return (B / 2) % kSyms == 0 ? kSyms : 1;
-}
-
 struct Geometry {
-  int C, S, slice, tile, ntiles, threads, margin, planes, smem;
+  int C, slice, tile, ntiles, threads, margin, planes, smem;
 };
 
 // one launch's shape: planes is the words of a staged phase plane, pads
@@ -136,19 +119,16 @@ __host__ __device__ Geometry geometry(int B, int sps, int nfilts, int L,
   Geometry g;
   g.C = cluster_for(B);
   g.slice = B / g.C;
-  g.S = syms_for(B);
-  const int cap = max_threads(g.S) * g.S;
   g.tile = g.slice < kTileSyms ? g.slice : kTileSyms;
-  g.tile = g.tile < cap ? g.tile : cap;
   g.ntiles = (g.slice + g.tile - 1) / g.tile;
-  g.threads = ((g.tile + g.S - 1) / g.S + 31) / 32 * 32;
+  g.threads = (g.tile + 31) / 32 * 32;
   g.margin = kPrefetch
                  ? static_cast<int>(ceilf(bf * rate_clip +
                                           a * static_cast<float>(sps))) + 2
                  : 0;
   const int words =
       g.tile + 1 + width / sps + (2 * g.margin + sps - 1) / sps + 1;
-  g.planes = words + (g.S > 1 ? words / g.S : 0) + 1;
+  g.planes = words + 1;
   g.smem = 16 + 2 * kSums * 4 + 16 + 2 * kMaxCluster * kSums * 4 +
            nfilts * (L + 2 * kPad) * 8 + 2 * sps * g.planes * 8 +
            g.ntiles * (g.threads / 32) * kSums * 4;
@@ -271,12 +251,6 @@ __device__ __forceinline__ float2 tap_at(const float2* row, int i, int L) {
              ? row[i + kPad] : make_float2(0.0f, 0.0f);
 }
 
-// word w of a staged phase plane: a pad word after every S words
-template <int S>
-__device__ __forceinline__ int phys(int w) {
-  return S > 1 ? w + w / S : w;
-}
-
 struct Acc {                            // y and dy on both planes
   float yr = 0.0f, yi = 0.0f, dr = 0.0f, di = 0.0f;
   __device__ __forceinline__ void add(float2 w, float2 t) {
@@ -318,54 +292,8 @@ struct Probes {                         // rows r, r - 1, r + 1 of a column
   }
 };
 
-// the blocked route: the dot products of S symbols over columns d - 1 ..
-// d + L of their windows, sharing the tap triples of the probes ``pr``:
-// symbol n's column c is staged q = q0 + n*sps + c (tap i = column - (d +
-// e)). Each column's taps and samples are loaded before the previous
-// column's products, so a lone warp does not wait on them.
-template <int S>
-__device__ __forceinline__ void blocked(int q0, const Probes& pr,
-                                        const float2* win, const Loop& lp,
-                                        Acc* c0, Acc* cm, Acc* cp) {
-  constexpr int N = S;
-  const int sps = lp.sps, ncol = lp.L + 2;
-  int ph, off = div_rem(q0, sps, lp.sps_shift, ph);
-  float2 a0 = pr.tc[0], am = pr.tm[0], ap = pr.tp[0], w[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) w[n] = win[ph * lp.planes + phys<S>(off + n)];
-  for (int c = 0; c < ncol; ++c) {
-    if (++ph == sps) {
-      ph = 0;
-      ++off;
-    }
-    float2 b0 = a0, bm = am, bp = ap, wn[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) wn[n] = w[n];
-    if (c + 1 < ncol) {
-      b0 = pr.tc[c + 1];
-      bm = pr.tm[c + 1];
-      bp = pr.tp[c + 1];
-#pragma unroll
-      for (int n = 0; n < N; ++n)
-        wn[n] = win[ph * lp.planes + phys<S>(off + n)];
-    }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      c0[n].add(w[n], a0);
-      cm[n].add(w[n], am);
-      cp[n].add(w[n], ap);
-    }
-    a0 = b0;
-    am = bm;
-    ap = bp;
-#pragma unroll
-    for (int n = 0; n < N; ++n) w[n] = wn[n];
-  }
-}
-
-// one symbol alone: tile symbol kk at row r, staged q = delta + (kk + 1)*sps
-// + window column
-template <int S>
+// tile symbol kk's dot products at row r, staged q = delta + (kk + 1)*sps +
+// window column
 __device__ __forceinline__ void one(int kk, int r, bool slow, int delta,
                                     const float2* taps, const float2* win,
                                     const Loop& lp, Acc& c0, Acc& cm,
@@ -378,7 +306,7 @@ __device__ __forceinline__ void one(int kk, int r, bool slow, int delta,
                           lp.sps_shift, ph);
 #pragma unroll 5
     for (int c = 0; c < L + 2; ++c) {
-      const float2 w = win[ph * lp.planes + phys<S>(off)];
+      const float2 w = win[ph * lp.planes + off];
       c0.add(w, pr.tc[c]);
       cm.add(w, pr.tm[c]);
       cp.add(w, pr.tp[c]);
@@ -395,7 +323,7 @@ __device__ __forceinline__ void one(int kk, int r, bool slow, int delta,
     const float2* rp = taps + pr.pp * Lp;
     int ph, off = div_rem(delta + (kk + 1) * sps, sps, lp.sps_shift, ph);
     for (int t = 0; t < lp.width; ++t) {
-      const float2 w = win[ph * lp.planes + phys<S>(off)];
+      const float2 w = win[ph * lp.planes + off];
       c0.add(w, tap_at(rc, t - pr.d, L));
       cm.add(w, tap_at(rm, t - pr.d - pr.em, L));
       cp.add(w, tap_at(rp, t - pr.d - pr.ep, L));
@@ -407,64 +335,43 @@ __device__ __forceinline__ void one(int kk, int r, bool slow, int delta,
   }
 }
 
-// a thread's group: tile symbols g .. g + S - 1 at rows rs; ``shared``:
-// every group of the warp is whole and on one row (the blocked route), else
-// each symbol alone (the per-symbol route). Their outputs into y, their six
-// products' tree into v.
-template <int S>
-__device__ __forceinline__ void group(int g, int ts, const int (&rs)[S],
-                                      bool shared, int delta, bool slow,
-                                      const float2* taps, const float2* win,
-                                      const Loop& lp, float2 (&y)[S],
-                                      float (&v)[6]) {
-  Acc c0[S], cm[S], cp[S];
-  if (shared) {
-    const Probes pr(taps, rs[0], lp);
-    blocked<S>(delta + (g + 1) * lp.sps + pr.d - 1, pr, win, lp, c0, cm, cp);
-  } else {
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      if (g + s < ts)
-        one<S>(g + s, rs[s], slow, delta, taps, win, lp, c0[s], cm[s], cp[s]);
-  }
-  float val[S][6];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    y[s] = make_float2(c0[s].yr, c0[s].yi);
-    if (g + s < ts) {
-      val[s][0] = c0[s].u();
-      val[s][1] = c0[s].pw();
-      val[s][2] = cm[s].u();
-      val[s][3] = cm[s].pw();
-      val[s][4] = cp[s].u();
-      val[s][5] = cp[s].pw();
-    } else {
-#pragma unroll
-      for (int i = 0; i < 6; ++i) val[s][i] = -0.0f;
-    }
-  }
-#pragma unroll
-  for (int w = 1; w < S; w <<= 1)
-#pragma unroll
-    for (int a = 0; a + w < S; a += 2 * w)
-#pragma unroll
-      for (int i = 0; i < 6; ++i) val[a][i] = val[a][i] + val[a + w][i];
-#pragma unroll
-  for (int i = 0; i < 6; ++i) v[i] = val[0][i];
+// the six products of a symbol's accumulators that its block sums
+__device__ __forceinline__ void products(const Acc& c0, const Acc& cm,
+                                         const Acc& cp, float (&v)[6]) {
+  v[0] = c0.u();
+  v[1] = c0.pw();
+  v[2] = cm.u();
+  v[3] = cm.pw();
+  v[4] = cp.u();
+  v[5] = cp.pw();
 }
 
-// the outputs of tile symbols g .. min(g + S, ts) - 1 of block j
-template <int S>
-__device__ __forceinline__ void store(const float2 (&y)[S], int g, int ts,
-                                      int k0, int j, const Loop& lp,
-                                      float* ys) {
+// tile symbol g's output y and its six products v, -0 where g >= ts. Kept a
+// function of its own, its guards included: written inline in the kernel,
+// nvcc gives the column loop fewer registers and the kernel runs slower
+// (PERF.md).
+__device__ __forceinline__ void dots(int g, int ts, int r, int delta,
+                                     bool slow, const float2* taps,
+                                     const float2* win, const Loop& lp,
+                                     float2& y, float (&v)[6]) {
+  Acc c0, cm, cp;
+  if (g < ts) one(g, r, slow, delta, taps, win, lp, c0, cm, cp);
+  y = make_float2(c0.yr, c0.yi);
+  if (g < ts) {
+    products(c0, cm, cp, v);
+  } else {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    if (g + s < ts) {
-      const size_t at = static_cast<size_t>(j) * lp.B + k0 + g + s;
-      ys[at] = y[s].x;
-      ys[static_cast<size_t>(lp.nblocks) * lp.B + at] = y[s].y;
-    }
+    for (int i = 0; i < 6; ++i) v[i] = -0.0f;
+  }
+}
+
+// tile symbol g's output (where g < ts) of block j
+__device__ __forceinline__ void store(float2 y, int g, int ts, int k0, int j,
+                                      const Loop& lp, float* ys) {
+  if (g < ts) {
+    const size_t at = static_cast<size_t>(j) * lp.B + k0 + g;
+    ys[at] = y.x;
+    ys[static_cast<size_t>(lp.nblocks) * lp.B + at] = y.y;
   }
 }
 
@@ -486,16 +393,14 @@ struct Cursor {
       ++word;
     }
   }
-  template <int S>
   __device__ __forceinline__ float2& in(float2* win, int planes) const {
-    return win[plane * planes + phys<S>(word)];
+    return win[plane * planes + word];
   }
 };
 
 // stage samples base .. base + count - 1 of the stream as staged q = 0 ..
 // count - 1, zeros outside it; whether the thread's samples hold a
 // non-finite one
-template <int S>
 __device__ __forceinline__ bool stage(float2* win, const float* x,
                                       const Loop& lp, long long base,
                                       int count) {
@@ -507,20 +412,19 @@ __device__ __forceinline__ bool stage(float2* win, const float* x,
       v = make_float2(x[g], x[lp.n + g]);
       bad |= !(isfinite(v.x) && isfinite(v.y));
     }
-    c.in<S>(win, lp.planes) = v;
+    c.in(win, lp.planes) = v;
   }
   return bad;
 }
 
 // stage's copy by cp.async, not waited for
-template <int S>
 __device__ __forceinline__ void prefetch(float2* win, const float* x,
                                          const Loop& lp, long long base,
                                          int count) {
   for (Cursor c(0, lp); c.q < count; c.next(lp.sps)) {
     const long long g = base + c.q;
     const bool in = g >= 0 && g < lp.n;
-    float2& v = c.in<S>(win, lp.planes);
+    float2& v = c.in(win, lp.planes);
     cp_async4(&v.x, in ? x + g : x, in ? 4 : 0);
     cp_async4(&v.y, in ? x + lp.n + g : x, in ? 4 : 0);
   }
@@ -529,12 +433,11 @@ __device__ __forceinline__ void prefetch(float2* win, const float* x,
 
 // whether the staged q in [lo, hi) that this thread copies hold a
 // non-finite sample
-template <int S>
 __device__ __forceinline__ bool scan(float2* win, const Loop& lp, int lo,
                                      int hi) {
   bool bad = false;
   for (Cursor c(lo, lp); c.q < hi; c.next(lp.sps)) {
-    const float2 v = c.in<S>(win, lp.planes);
+    const float2 v = c.in(win, lp.planes);
     bad |= !(isfinite(v.x) && isfinite(v.y));
   }
   return bad;
@@ -579,8 +482,7 @@ __device__ __forceinline__ void update(const float (&sum)[kSums],
   rate = rate_n;
 }
 
-template <int S>
-__global__ void __launch_bounds__(max_threads(S), 1)
+__global__ void __launch_bounds__(kTileSyms, 1)
 pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
                  const float* __restrict__ dbank,
                  const long long* __restrict__ ibase0,
@@ -624,8 +526,7 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
   }
 
   const int kc = static_cast<int>(rank) * lp.slice;   // the CTA's first symbol
-  const int g = tid * S;                              // the thread's group
-  const bool warp_one_half = (B / 2) % (32 * S) == 0;
+  const bool warp_one_half = (B / 2) % 32 == 0;
   bool pf = false, pf_bad = false;                    // the prefetched span
   long long pf_lo = 0, pf_hi = 0;
   int pf_count = 0;
@@ -635,7 +536,7 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
     const long long start = clamp_start(ibase, lp.last);
     float2* cur = wins + (j & 1) * sps * lp.planes;
     float thread_sum[kSums];
-    float2 y[S];
+    float2 y = make_float2(0.0f, 0.0f);   // tile symbol tid's output
     int y_k0 = 0, y_ts = 0;
     for (int t = 0; t < lp.ntiles; ++t) {
       const int k0 = kc + t * lp.tile;
@@ -649,13 +550,13 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
       bool slow;
       if (t > 0) {
         __syncthreads();               // the window is free for this tile
-        slow = __syncthreads_or(stage<S>(cur, x, lp, base, count));
+        slow = __syncthreads_or(stage(cur, x, lp, base, count));
       } else if (pf && start >= pf_lo && start <= pf_hi) {
         delta = static_cast<int>(start - pf_lo);
-        slow = pf_bad && __syncthreads_or(scan<S>(cur, lp, delta,
-                                                  delta + count));
+        slow = pf_bad &&
+               __syncthreads_or(scan(cur, lp, delta, delta + count));
       } else {
-        slow = __syncthreads_or(stage<S>(cur, x, lp, base, count));
+        slow = __syncthreads_or(stage(cur, x, lp, base, count));
       }
       if (t == 0) {
         // the next block's start lies within margin of ibase + B*sps
@@ -668,43 +569,32 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
           pf_lo = clamp_start(nb - lp.margin, lp.last);
           pf_hi = clamp_start(nb + lp.margin, lp.last);
           pf_count = static_cast<int>(pf_hi - pf_lo) + count;
-          prefetch<S>(wins + ((j + 1) & 1) * sps * lp.planes, x, lp,
-                      pf_lo + static_cast<long long>(k0 - 1) * sps, pf_count);
+          prefetch(wins + ((j + 1) & 1) * sps * lp.planes, x, lp,
+                   pf_lo + static_cast<long long>(k0 - 1) * sps, pf_count);
         }
       }
-      // the blocked route where every group of the warp is whole and on
-      // one row (r is monotone in k): a warp-wide choice, so no lane waits
-      // on another's route
-      int rs[S];
-      bool one_row = true;
-      if (g < ts) {
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          rs[s] = row_of(frac, rate, k0 + (g + s < ts ? g + s : g), lp);
-        one_row = g + S <= ts && rs[0] == rs[S - 1];
-      }
-      const bool shared =
-          kBlocked && S > 1 && !slow && __all_sync(0xffffffffu, one_row);
+      int r = 0;
+      if (tid < ts) r = row_of(frac, rate, k0 + tid, lp);
       float v[6];
-      if (g < ts) {
-        group<S>(g, ts, rs, shared, delta, slow, taps, cur, lp, y, v);
+      if (tid < ts) {
+        dots(tid, ts, r, delta, slow, taps, cur, lp, y, v);
       } else {
 #pragma unroll
         for (int i = 0; i < 6; ++i) v[i] = -0.0f;
       }
       // the last tile's outputs wait until the block's barrier is passed,
       // so that its release does not wait on their stores
-      if (t + 1 < lp.ntiles) store<S>(y, g, ts, k0, j, lp, ys);
+      if (t + 1 < lp.ntiles) store(y, tid, ts, k0, j, lp, ys);
       y_k0 = k0;
       y_ts = ts;
-      const int hg = k0 + g >= B / 2 ? 1 : 0;      // the group's half
+      const int hg = k0 + tid >= B / 2 ? 1 : 0;    // the symbol's half
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
         thread_sum[i] = hg == 0 ? v[i] : -0.0f;
         thread_sum[6 + i] = hg == 1 ? v[i] : -0.0f;
       }
-      // a warp whose groups lie in one half leaves the other's -0 alone
-      const int hw = k0 + warp * 32 * S >= B / 2 ? 1 : 0;
+      // a warp whose symbols lie in one half leaves the other's -0 alone
+      const int hw = k0 + warp * 32 >= B / 2 ? 1 : 0;
 #pragma unroll
       for (int i = 0; i < kSums; ++i)
         if (!warp_one_half || i / 6 == hw)
@@ -721,7 +611,7 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
     bool bad_next = false;
     if (pf) {
       cp_async_wait_all();
-      bad_next = scan<S>(wins + ((j + 1) & 1) * sps * lp.planes, lp, 0,
+      bad_next = scan(wins + ((j + 1) & 1) * sps * lp.planes, lp, 0,
                          pf_count);
     }
     pf_bad = __syncthreads_or(bad_next);
@@ -740,7 +630,7 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
       // one CTA: every thread reads its slot and takes the same update,
       // so the state needs no broadcast
       __syncthreads();
-      store<S>(y, g, y_ts, y_k0, j, lp, ys);
+      store(y, tid, y_ts, y_k0, j, lp, ys);
       const float4* p = slots + (j & 1) * kSums / 4;
       float sum[kSums];
 #pragma unroll
@@ -754,7 +644,7 @@ pfb_track_kernel(const float* __restrict__ x, const float* __restrict__ bank,
       update(sum, lp, ibase, frac, rate);
       continue;
     }
-    store<S>(y, g, y_ts, y_k0, j, lp, ys);
+    store(y, tid, y_ts, y_k0, j, lp, ys);
     if (warp == 0) {
       // a cluster: lane r pushes this CTA's partial into rank r's
       // recv[parity][this rank] and, when every rank's has landed, reads
@@ -821,22 +711,9 @@ int log2_or(int v) {         // log2 v where v is a power of two, else -1
   return k;
 }
 
-// the launch's configuration, with the kernel's attributes set (its shared
-// memory, a non-portable cluster size), held to the card: 0, an error of
-// setting them or of the occupancy query, or kNoFit where no such cluster
-// fits; ``clusters``, where not null, takes cudaOccupancyMaxActiveClusters
-template <int S>
-int configure(const Geometry& g, cudaStream_t stream, cudaLaunchConfig_t& cfg,
-              cudaLaunchAttribute& attr, int* clusters) {
-  auto* kernel = pfb_track_kernel<S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (g.C > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+// a launch's configuration on ``stream``; ``attr`` takes its cluster size
+void configure(const Geometry& g, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+               cudaLaunchAttribute& attr) {
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = g.C;
   attr.val.clusterDim.y = 1;
@@ -848,65 +725,88 @@ int configure(const Geometry& g, cudaStream_t stream, cudaLaunchConfig_t& cfg,
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters != nullptr) *clusters = n;
-  return n < 1 ? kNoFit : 0;
 }
 
-template <int S>
-int launch(const Loop& lp, const Geometry& g, const float* x,
-           const float* bank, const float* dbank, const long long* ibase0,
-           const float* frac0, const float* rate0, float* ys,
-           long long* ibase_out, float* frac_out, float* rate_out,
-           cudaStream_t stream) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  if (const int err = configure<S>(g, stream, cfg, attr, nullptr)) return err;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, pfb_track_kernel<S>, x, bank, dbank, ibase0,
-                         frac0, rate0, ys, ibase_out, frac_out, rate_out, lp);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
+// what is settled once for each device: the shared memory the kernel may
+// take (it only grows), the non-portable cluster size, and, for each launch
+// shape (C, threads, shared memory), cudaOccupancyMaxActiveClusters
+struct Settled {
+  int smem = 0;
+  bool nonportable = false;
+  std::map<std::tuple<int, int, int>, int> clusters;
+};
+std::mutex settled_mutex;
+std::map<int, Settled> settled;
 
-// an instance for each S that syms_for can give at kSyms
-#define PFB_TRACK_BY_S(CALL)                        \
-  (g.S == 4 ? CALL<(kSyms >= 4 ? 4 : 1)>            \
-   : g.S == 2 ? CALL<(kSyms >= 2 ? 2 : 1)> : CALL<1>)
+// the kernel's attributes set for ``g`` on the current device, and the
+// cluster held to the card, once a device and shape: 0, an error of setting
+// them or of the occupancy query (not kept: the next call asks again), or
+// kNoFit where no such cluster fits; ``clusters``, where not null, takes
+// cudaOccupancyMaxActiveClusters
+int fit(const Geometry& g, int* clusters) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const std::lock_guard<std::mutex> lock(settled_mutex);
+  Settled& s = settled[dev];
+  const auto key = std::make_tuple(g.C, g.threads, g.smem);
+  auto it = s.clusters.find(key);
+  if (it == s.clusters.end()) {
+    if (g.smem > s.smem) {
+      err = cudaFuncSetAttribute(pfb_track_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 g.smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      s.smem = g.smem;
+    }
+    if (g.C > 8 && !s.nonportable) {
+      err = cudaFuncSetAttribute(
+          pfb_track_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      s.nonportable = true;
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    configure(g, nullptr, cfg, attr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, pfb_track_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    it = s.clusters.emplace(key, n).first;
+  }
+  if (clusters != nullptr) *clusters = it->second;
+  return it->second < 1 ? kNoFit : 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-// The launch's shape at these parameters, into out[9]: C, S, slice, tile,
+// The launch's shape at these parameters, into out[8]: C, slice, tile,
 // tiles, threads, margin, plane words, dynamic shared memory bytes.
 void pfb_track_geometry(int B, int sps, int nfilts, int L, int width,
                         float rate_clip, float a, int* out) {
   const Geometry g = geometry(B, sps, nfilts, L, width,
                               static_cast<float>(B), rate_clip, a);
-  const int v[9] = {g.C, g.S, g.slice, g.tile, g.ntiles, g.threads,
-                    g.margin, g.planes, g.smem};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int v[8] = {g.C,       g.slice,  g.tile,   g.ntiles,
+                    g.threads, g.margin, g.planes, g.smem};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
 }
 
-// Whether the cluster of the launch at these parameters fits the card, as
-// pfb_track checks it before each launch: 0 (and
+// Whether the cluster of the launch at these parameters fits the current
+// device, as pfb_track checks it (once a device and shape): 0 (and
 // cudaOccupancyMaxActiveClusters into *clusters), or the error.
 int pfb_track_clusters(int B, int sps, int nfilts, int L, int width,
                        float rate_clip, float a, int* clusters) {
   const Geometry g = geometry(B, sps, nfilts, L, width,
                               static_cast<float>(B), rate_clip, a);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  return PFB_TRACK_BY_S(configure)(g, nullptr, cfg, attr, clusters);
+  return fit(g, clusters);
 }
 
 // One launch: one cluster on ``stream`` over ``nblocks`` tracking blocks;
 // returns 0 on success, else the error of setting the kernel's attributes
 // (its shared memory, a non-portable cluster size), of the occupancy query,
-// kNoFit where no such cluster fits the card, or the launch's error. x is
+// kNoFit where no such cluster fits the card (both settled once a device and
+// shape), or the launch's error. x is
 // the (2, n) float32 padded stream, bank and dbank (nfilts, L) float32, the
 // state (ibase int64, frac, rate float32) one element each in and out, ys
 // (2, nblocks, B) float32.
@@ -923,13 +823,19 @@ int pfb_track(const void* x, long long n, const void* bank, const void* dbank,
                 aa, inv_h, inv_2delta, qs, rate_clip, g.C,    g.slice,
                 g.tile, g.ntiles, g.margin, g.planes, log2_or(sps),
                 log2_or(nfilts)};
-  return PFB_TRACK_BY_S(launch)(
-      lp, g, static_cast<const float*>(x), static_cast<const float*>(bank),
-      static_cast<const float*>(dbank), static_cast<const long long*>(ibase0),
-      static_cast<const float*>(frac0), static_cast<const float*>(rate0),
-      static_cast<float*>(ys), static_cast<long long*>(ibase_out),
-      static_cast<float*>(frac_out), static_cast<float*>(rate_out),
-      static_cast<cudaStream_t>(stream));
+  if (const int err = fit(g, nullptr)) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  configure(g, static_cast<cudaStream_t>(stream), cfg, attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pfb_track_kernel, static_cast<const float*>(x),
+      static_cast<const float*>(bank), static_cast<const float*>(dbank),
+      static_cast<const long long*>(ibase0), static_cast<const float*>(frac0),
+      static_cast<const float*>(rate0), static_cast<float*>(ys),
+      static_cast<long long*>(ibase_out), static_cast<float*>(frac_out),
+      static_cast<float*>(rate_out), lp);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* pfb_track_error_string(int err) {

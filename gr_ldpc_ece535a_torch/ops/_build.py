@@ -162,7 +162,7 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                # kind, first bit pattern, count, u64 mismatches, stream
                "dsp_shortcut_check": [i, ctypes.c_uint, q, p, p],
                "dsp_error_string": [i]}
-    elif name in ("pfb_track", "pfb_track_one_sm"):
+    elif name == "pfb_track":
         q = ctypes.c_longlong
         track_args = [p, q,                   # x (2, n) f32 padded, n
                       p, p,                   # bank, dbank (nfilts, L) f32
@@ -173,15 +173,11 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                       f, f, f, f, f,          # nfilts, B*sps, B, a, a*a
                       f, f, f, f,             # 1/h, 1/(2 delta), qs, clip
                       p]                      # cudaStream_t
-        fns = {"pfb_track": track_args, "pfb_track_error_string": [i]}
-        if name == "pfb_track":
-            # B, sps, nfilts, L, width, rate clip, a, int out[9] / int*
-            # for cudaOccupancyMaxActiveClusters
-            fns["pfb_track_geometry"] = [i] * 5 + [f, f, p]
-            fns["pfb_track_clusters"] = [i] * 5 + [f, f, p]
-        else:
-            fns["pfb_track_smem_bytes"] = [i] * 5  # B, sps, nfilts, L, width
-            fns["pfb_track_threads"] = [i]         # B
+        # B, sps, nfilts, L, width, rate clip, a, int out[8] / int* for
+        # cudaOccupancyMaxActiveClusters
+        fns = {"pfb_track": track_args, "pfb_track_error_string": [i],
+               "pfb_track_geometry": [i] * 5 + [f, f, p],
+               "pfb_track_clusters": [i] * 5 + [f, f, p]}
     elif name in ("bp_study", "bp_study_ms"):
         fns = {f"{name}_decode": [
                    i,           # instance (bp_study_find's index)

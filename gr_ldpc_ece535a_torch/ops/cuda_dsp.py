@@ -39,9 +39,8 @@ __all__ = ["agc_loop", "costas_loop", "pfb_track", "scan_condition",
            "LAUNCHES", "TILE", "SCAN_TILE", "STAGE", "UNROLL", "SINCOS",
            "ALPHA_MAX",
            "SHORTCUT_RANGES", "TRACK_TILE", "TRACK_PAD", "TRACK_SUMS",
-           "TRACK_MAX_CLUSTER", "TRACK_CTA_SYMS", "TRACK_SYMS", "TRACK_NO_FIT",
-           "TrackGeometry", "track_cluster", "track_syms", "track_max_threads",
-           "track_margin",
+           "TRACK_MAX_CLUSTER", "TRACK_CTA_SYMS", "TRACK_NO_FIT",
+           "TrackGeometry", "track_cluster", "track_margin",
            "track_geometry", "track_span", "track_args", "track_clusters"]
 
 # kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
@@ -60,24 +59,22 @@ SINCOS = True   # costas_loop takes sincosf after its first sample: kSinCos
 # loop_bw gives |alpha| <= 2 + 2 sqrt 2
 ALPHA_MAX = 5.0
 # the constants of csrc/pfb_track.cu that track_geometry mirrors
-TRACK_TILE = 2048       # symbols a staged window tile at most: kTileSyms
+TRACK_TILE = 512        # symbols (threads) a tile at most: kTileSyms
 TRACK_PAD = 2           # zero tap columns at each end of a row: kPad
 TRACK_SUMS = 12         # (u, pw) x three rows x two halves: kSums
 TRACK_MAX_CLUSTER = 16  # CTAs a block at most: kMaxCluster
 TRACK_CTA_SYMS = 512    # symbols a CTA at least, where C > 1: kCtaSyms
-TRACK_SYMS = 1          # symbols a thread: kSyms
 TRACK_NO_FIT = 100000   # the library's error where no cluster fits: kNoFit
 
 
 class TrackGeometry(NamedTuple):
     """One ``pfb_track`` launch's shape (csrc/pfb_track.cu's ``geometry``):
-    C CTAs (one cluster) of ``threads`` threads, S symbols a thread; CTA c
+    C CTAs (one cluster) of ``threads`` threads, a symbol a thread; CTA c
     takes block symbols [c*slice, (c + 1)*slice) in ``ntiles`` tiles of at
     most ``tile``; the prefetch stages ``margin`` samples either side of
     the predicted start; a staged phase plane holds ``planes`` float2
     words, pads included; ``smem`` bytes of dynamic shared memory."""
     C: int
-    S: int
     slice: int
     tile: int
     ntiles: int
@@ -99,19 +96,6 @@ def track_cluster(B: int) -> int:
     return 1
 
 
-def track_syms(B: int, most: int = TRACK_SYMS) -> int:
-    """Symbols a thread: ``most`` (the source's kSyms) where it divides a
-    half, else 1 (``syms_for``)."""
-    return most if (B // 2) % most == 0 else 1
-
-
-def track_max_threads(S: int) -> int:
-    """Threads a CTA at most at S symbols a thread (the kernel's launch
-    bound ``max_threads``): 256 at 4, which leaves 255 registers a thread,
-    else 512 (128)."""
-    return 256 if S == 4 else 512
-
-
 def track_margin(B: int, sps: int, rate_clip: float, gain: float) -> int:
     """Samples the prefetch stages either side of ibase + B*sps: ceil(B *
     rate_clip + a*sps) + 2, in the kernel's float32 arithmetic."""
@@ -120,26 +104,22 @@ def track_margin(B: int, sps: int, rate_clip: float, gain: float) -> int:
 
 
 def track_geometry(B: int, sps: int, nfilts: int, L: int, width: int,
-                   rate_clip: float, gain: float,
-                   most: int = TRACK_SYMS) -> TrackGeometry:
+                   rate_clip: float, gain: float) -> TrackGeometry:
     """The launch's shape at these parameters (``geometry`` in the source,
-    which ``pfb_track_geometry`` returns on the card); ``most`` is kSyms,
-    for a build that sets it otherwise."""
+    which ``pfb_track_geometry`` returns on the card)."""
     C = track_cluster(B)
     slice_ = B // C
-    S = track_syms(B, most)
-    tile = min(slice_, TRACK_TILE, track_max_threads(S) * S)
+    tile = min(slice_, TRACK_TILE)
     ntiles = -(-slice_ // tile)
-    threads = -(-(-(-tile // S)) // 32) * 32
+    threads = -(-tile // 32) * 32
     margin = track_margin(B, sps, rate_clip, gain)
     words = tile + 1 + width // sps + -(-(2 * margin) // sps) + 1
-    planes = words + (words // S if S > 1 else 0) + 1
+    planes = words + 1
     smem = (16 + 2 * TRACK_SUMS * 4 + 16
             + 2 * TRACK_MAX_CLUSTER * TRACK_SUMS * 4
             + nfilts * (L + 2 * TRACK_PAD) * 8
             + 2 * sps * planes * 8 + ntiles * (threads // 32) * TRACK_SUMS * 4)
-    return TrackGeometry(C, S, slice_, tile, ntiles, threads, margin, planes,
-                         smem)
+    return TrackGeometry(C, slice_, tile, ntiles, threads, margin, planes, smem)
 
 
 def _bits(v: float) -> int:
@@ -373,8 +353,8 @@ def _launch_track(lib, args: list, stream) -> None:
 def track_clusters(loop, device="cuda") -> int:
     """cudaOccupancyMaxActiveClusters of the launch ``loop`` (an
     ``ops.dsp.PfbLoop``) would make, on the card, as the library checks it
-    before each launch; RuntimeError where the cluster does not fit.
-    Launches nothing."""
+    (once a device and launch shape); RuntimeError where the cluster does
+    not fit. Launches nothing."""
     from ._build import load_library
 
     lib = load_library("pfb_track")

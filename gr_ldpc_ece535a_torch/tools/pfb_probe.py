@@ -1,120 +1,136 @@
 """Where the clock tracker's kernel spends its time; card only.
 
-    python -m gr_ldpc_ece535a_torch.tools.pfb_probe [--part parent|shipped|both] [--out F.json]
+    python -m gr_ldpc_ece535a_torch.tools.pfb_probe [--against OTHER.cu] [--out F.json]
 
-Builds variants of a tracker source (``_build.load_variants``, into the
-git-ignored ``_build/``), each one knob of the source set otherwise, and
+Builds variants of ``csrc/pfb_track.cu`` (``_build.load_variants``, into the
+git-ignored ``_build/``), each with one part of the design undone, and
 times each by CUDA events (``tools/_timing.py::time_decode``, two runs in
 turn, each a median of 20) at the shapes of SHAPES: 64-symbol blocks on
 one 16,384-sample segment (the DSP flowgraph's tracker), 2,048 and 8,192
 on a 2^21-sample stream (the chain's composed blocks), each the
 ``tools/pfb_track_check.py`` stream from its acquisition. Each time is
 also given a block and a symbol, beside the one-SM FMA floor at the SM
-clock the parent's kernel holds back to back.
+clock the kernel holds back to back.
 
-The parent design (``csrc/pfb_track_one_sm.cu``: one CTA, a thread a
-symbol, the window loaded after each block's update, one thread's update):
-  taps once a warp   exact: where a warp's row is uniform, lane c loads
-                     column c's tap triple once and the columns are
-                     shuffled from it
-  2 / 4 a thread     exact symbols: two or four consecutive symbols a
-                     thread, a column's tap triple loaded once for them
-                     where they share a row (the sums' order changes)
-  dots stubbed       timing only: one column a symbol
-  no global loads    timing only: the window staged from no global load
-  update stubbed     timing only: the state steps B*sps a block
-The shipped design (``csrc/pfb_track.cu``), each part undone alone:
   C = 1              one CTA a block, not a cluster (exact)
   C = 8              8 CTAs where the rule gives 16 (exact)
-  S = 2, S = 4       2 or 4 symbols a thread (kSyms), on the blocked route
-                     where a warp's groups share a row (exact)
-  S = 4, per-symbol  the same geometry, every group on the per-symbol
-                     loop (exact)
   no prefetch        the window loaded on the chain every block (exact)
   dots stubbed       timing only: one column a symbol
   update stubbed     timing only: the state steps B*sps a block, and the
                      reduction that feeds the update goes with it
-Every exact variant must give its design's output bit for bit: the
-parent's on one block from the acquisition (its symbols; the S variants
-sum in another order, so their whole runs are only reported); the
-shipped design's over the whole run, symbols and state, since its sums
-take one tree whatever C and S are. The source must hold each knob's text
-once, or this raises.
+
+Every exact variant must give the kernel's output bit for bit over the
+whole run, symbols and state (its sums take one tree whatever C is); the
+source must hold each knob's text once, or this raises.
+
+``--against`` builds another version of the source with the same C
+interface (an earlier commit's, say) and times it in the same turns, with
+its output compared and reported, not held. For the kernel as built and
+for that version the probe also takes the host's cost of one library call
+(``host_us``: the median of the host clock around the call while the card
+is busy, so the call only queues its launch) and one call alone after a
+synchronisation (``lone_ms``: CUDA events, so the host's cost before the
+launch counts in it).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..ops import _build
+from ..ops import _build, cuda_dsp
 from . import pfb_track_check as tc
 
-__all__ = ["PARENT_SOURCE", "KNOBS", "VARIANTS", "TIMING_ONLY", "SHAPES",
-           "variant_source", "main"]
+__all__ = ["KNOBS", "VARIANTS", "TIMING_ONLY", "SHAPES", "AGAINST",
+           "variant_source", "launcher", "host_costs", "main"]
 
-PARENT_SOURCE = _build.SOURCES["pfb_track"].with_name("pfb_track_one_sm.cu")
-# design -> {variant: (the text in the source, its replacement), or a
-# tuple of such pairs}
+# variant -> (the text in the source, its replacement)
 KNOBS = {
-    "parent": {
-        "taps once a warp": ("constexpr bool kTapShuffle = false;",
-                             "constexpr bool kTapShuffle = true;"),
-        "2 a thread": ("constexpr int kSyms = 1;", "constexpr int kSyms = 2;"),
-        "4 a thread": ("constexpr int kSyms = 1;", "constexpr int kSyms = 4;"),
-        "dots stubbed": ("constexpr bool kStubDots = false;",
-                         "constexpr bool kStubDots = true;"),
-        "no global loads": ("constexpr bool kStubLoads = false;",
-                            "constexpr bool kStubLoads = true;"),
-        "update stubbed": ("constexpr bool kStubUpdate = false;",
-                           "constexpr bool kStubUpdate = true;")},
-    "shipped": {
-        "C = 1": ("constexpr int kMaxCluster = 16;",
-                  "constexpr int kMaxCluster = 1;"),
-        "C = 8": ("constexpr int kMaxCluster = 16;",
-                  "constexpr int kMaxCluster = 8;"),
-        "S = 2": ("constexpr int kSyms = 1;", "constexpr int kSyms = 2;"),
-        "S = 4": ("constexpr int kSyms = 1;", "constexpr int kSyms = 4;"),
-        "S = 4, per-symbol": (
-            ("constexpr int kSyms = 1;", "constexpr int kSyms = 4;"),
-            ("constexpr bool kBlocked = true;",
-             "constexpr bool kBlocked = false;")),
-        "no prefetch": ("constexpr bool kPrefetch = true;",
-                        "constexpr bool kPrefetch = false;"),
-        "dots stubbed": ("    for (int c = 0; c < L + 2; ++c) {",
-                         "    for (int c = 0; c < 1; ++c) {"),
-        "update stubbed": (
-            "  const float stepi = floorf(adv);\n"
-            "  ibase = wrap_add(ibase, __float2ll_rz(stepi));\n"
-            "  frac = adv - stepi;\n  rate = rate_n;",
-            "  ibase = ibase + static_cast<long long>(lp.B) * lp.sps;")}}
-VARIANTS = {design: ("as built", *knobs) for design, knobs in KNOBS.items()}
-TIMING_ONLY = ("dots stubbed", "no global loads", "update stubbed")
-# the shipped source's knobs are constexpr flags; its stubs replace the
-# per-symbol loop's bound and the update's last four lines (the state then
-# steps B*sps a block, and what feeds the update is dead code)
+    "C = 1": ("constexpr int kMaxCluster = 16;",
+              "constexpr int kMaxCluster = 1;"),
+    "C = 8": ("constexpr int kMaxCluster = 16;",
+              "constexpr int kMaxCluster = 8;"),
+    "no prefetch": ("constexpr bool kPrefetch = true;",
+                    "constexpr bool kPrefetch = false;"),
+    # the per-symbol loop's bound
+    "dots stubbed": ("    for (int c = 0; c < L + 2; ++c) {",
+                     "    for (int c = 0; c < 1; ++c) {"),
+    # the update's last four lines: the state then steps B*sps a block, and
+    # what feeds the update is dead code
+    "update stubbed": (
+        "  const float stepi = floorf(adv);\n"
+        "  ibase = wrap_add(ibase, __float2ll_rz(stepi));\n"
+        "  frac = adv - stepi;\n  rate = rate_n;",
+        "  ibase = ibase + static_cast<long long>(lp.B) * lp.sps;")}
+VARIANTS = ("as built", *KNOBS)
+TIMING_ONLY = ("dots stubbed", "update stubbed")
+AGAINST = "against"            # the --against source's name in the records
 # name -> (block symbols, rate clip, stream samples)
 SHAPES = {"B=64": (64, 0.002, tc.SEGMENT),
           "B=2048": (2048, 2.5e-4, None), "B=8192": (8192, 2.5e-4, None)}
 STREAM_FRAMES = 1 << 14        # 2^21 samples
+HOST_CALLS = 200
 
 
-def variant_source(src: str, design: str, variant: str) -> str:
-    """The source ``src`` of ``design`` with ``variant``'s knob turned;
-    ValueError where the source does not hold the knob's text once."""
+def variant_source(src: str, variant: str) -> str:
+    """The source ``src`` with ``variant``'s knob turned; ValueError where
+    the source does not hold the knob's text once."""
     if variant == "as built":
         return src
-    knob = KNOBS[design][variant]
-    for old, new in (knob if isinstance(knob[0], tuple) else (knob,)):
-        if src.count(old) != 1:
-            raise ValueError(f"{design} source holds {src.count(old)} of "
-                             f"{old!r}")
-        src = src.replace(old, new)
-    return src
+    old, new = KNOBS[variant]
+    if src.count(old) != 1:
+        raise ValueError(f"pfb_track.cu holds {src.count(old)} of {old!r}")
+    return src.replace(old, new)
+
+
+def launcher(lib, xpp, banks, state, loop):
+    """A launch of ``lib``'s kernel (a library built from pfb_track.cu or a
+    variant) into buffers made once: a callable returning the (2, nblocks
+    *B) symbols and the state; no launch count."""
+    ys = torch.empty((2, loop.nblocks, loop.block_syms), dtype=torch.float32,
+                     device=xpp.device)
+    out = [torch.empty_like(t).reshape(()) for t in state]
+    args = cuda_dsp.track_args(xpp, *banks, state, loop, ys, out)
+    stream = torch.cuda.current_stream(xpp.device).cuda_stream
+
+    def launch():
+        err = lib.pfb_track(*args, stream)
+        if err:
+            raise RuntimeError(lib.pfb_track_error_string(err).decode())
+        return ys.reshape(2, -1), out
+    return launch
+
+
+def host_costs(fn, calls: int = HOST_CALLS) -> dict:
+    """``fn``'s host microseconds a call (the median over ``calls`` calls
+    queued back to back) and one call alone after a synchronisation by CUDA
+    events (the median of 20)."""
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        host.append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    lone = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        lone.append(start.elapsed_time(stop))
+    return {"host_us": statistics.median(host),
+            "lone_ms": statistics.median(lone)}
 
 
 def _ptxas(log: str) -> str:
@@ -139,11 +155,13 @@ def _same(a, b) -> bool:
 
 
 def main(argv=None) -> dict:
-    """Print and return {design: {shape: {variant: {"ms": [two runs],
-    "us_a_block", "ns_a_symbol", "exact"}}}, "card", "mhz", "floor_ms"}."""
+    """Print and return {shape: {variant: {"ms": [two runs], "us_a_block",
+    "ns_a_symbol", "exact", "whole_run_equal"}}, "card", "mhz",
+    "floor_ms"}; "as built" and AGAINST also carry host_costs's keys."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--part", default="both",
-                    choices=("parent", "shipped", "both"))
+    ap.add_argument("--against", default=None,
+                    help="another pfb_track.cu with the same C interface, "
+                         "timed in the same turns")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -152,78 +170,71 @@ def main(argv=None) -> dict:
     from ._timing import SM_FMA_PER_CLOCK, time_decode, track_fmas
     from .issue_model import under_load
 
-    designs = ("parent", "shipped") if a.part == "both" else (a.part,)
-    srcs = {"parent": ("pfb_track_one_sm", PARENT_SOURCE.read_text()),
-            "shipped": ("pfb_track", _build.SOURCES["pfb_track"].read_text())}
-    texts = {(d, v): variant_source(srcs[d][1], d, v)
-             for d in designs for v in VARIANTS[d]}
-    libs = {}
-    for d in designs:
-        keys = [k for k in texts if k[0] == d]
-        libs.update(zip(keys, _build.load_variants(
-            srcs[d][0], [texts[k] for k in keys])))
-    for (d, v), text in texts.items():
-        log = _build.variant_path(srcs[d][0], text).with_suffix(".log")
-        print(f"[pfb_probe] {d} {v}: {_ptxas(log.read_text())}", flush=True)
+    src = _build.SOURCES["pfb_track"].read_text()
+    texts = {v: variant_source(src, v) for v in VARIANTS}
+    if a.against:
+        texts[AGAINST] = Path(a.against).read_text()
+    libs = dict(zip(texts, _build.load_variants("pfb_track",
+                                                list(texts.values()))))
+    for v, text in texts.items():
+        log = _build.variant_path("pfb_track", text).with_suffix(".log")
+        print(f"[pfb_probe] {v}: {_ptxas(log.read_text())}", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda")
     stream = tc.chain_input(STREAM_FRAMES, dev)
-    out = {"card": card}
+    out = {"card": card, "floor_ms": {}}
     for name, (B, rc, samples) in SHAPES.items():
         xp = stream if samples is None else stream[:, :samples].contiguous()
         xpp, banks, _, loop, state = tc.setup(xp, B, rc)
-        one = loop._replace(nblocks=1)
-        runs, first = {}, {}
-        for (d, v), lib in libs.items():
-            runs[d, v] = tc.launcher(lib, xpp, banks, state, loop)
-            first[d, v] = _bits(*tc.launcher(lib, xpp, banks, state,
-                                             one)())[:1]
-        whole = {k: _bits(*fn()) for k, fn in runs.items()}
+        runs = {v: launcher(lib, xpp, banks, state, loop)
+                for v, lib in libs.items()}
+        whole = {v: _bits(*fn()) for v, fn in runs.items()}
         if "mhz" not in out:
-            _, smp = under_load(runs[designs[0], "as built"], 2.0)
+            _, smp = under_load(runs["as built"], 2.0)
             out["mhz"] = float(np.median([c for c, _, _ in smp]))
-        times = {k: [] for k in runs}
+        times = {v: [] for v in runs}
         for order in (list(runs), list(runs)[::-1]):
-            for k in order:
-                times[k].append(time_decode(runs[k]))
+            for v in order:
+                times[v].append(time_decode(runs[v]))
+        host = {v: host_costs(runs[v]) for v in ("as built", AGAINST)
+                if v in runs}
         fmas = track_fmas(loop.nblocks, B, loop.ntaps)
         floor = fmas / (SM_FMA_PER_CLOCK * out["mhz"] * 1e3)
+        out["floor_ms"][name] = floor
         print(f"[pfb_probe] {name}: {loop.nblocks} blocks of {B} symbols, "
               f"rate clip {rc}; one-SM FMA floor {floor:.4f} ms ({fmas:.4e} "
               f"FMAs, {SM_FMA_PER_CLOCK} a clock at {out['mhz']:.0f} MHz); "
               f"CUDA events, two runs in turn, each a median of 20 [{card}]",
               flush=True)
-        for (d, v), ms in times.items():
-            base = (d, "as built")
-            if v in TIMING_ONLY:
-                exact = None
-            elif d == "parent":
-                exact = _same(first[d, v], first[base])
-            else:
-                exact = _same(whole[d, v], whole[base])
+        for v, ms in times.items():
+            equal = _same(whole[v], whole["as built"])
+            exact = None if v in (*TIMING_ONLY, AGAINST) else equal
             rec = {"ms": ms, "us_a_block": float(np.mean(ms)) * 1e3
                    / loop.nblocks,
                    "ns_a_symbol": float(np.mean(ms)) * 1e6
                    / (loop.nblocks * B), "exact": exact,
-                   "whole_run_equal": _same(whole[d, v], whole[base])}
-            out.setdefault(d, {}).setdefault(name, {})[v] = rec
-            out.setdefault("floor_ms", {})[name] = floor
-            tag = (" (timing only)" if exact is None else
-                   ", exact" if exact else ", NOT EXACT")
-            print(f"    {d:8s} {v:18s} " + " / ".join(f"{t:.4f}" for t in ms)
+                   "whole_run_equal": equal, **host.get(v, {})}
+            out.setdefault(name, {})[v] = rec
+            tag = (", exact" if exact else ", NOT EXACT" if exact is False
+                   else f", output {'equal' if equal else 'differs'}"
+                   if v == AGAINST else " (timing only)")
+            extra = (f"; host {rec['host_us']:.2f} us a call, alone "
+                     f"{rec['lone_ms']:.4f} ms" if v in host else "")
+            print(f"    {v:16s} " + " / ".join(f"{t:.4f}" for t in ms)
                   + f" ms, {rec['us_a_block']:.3f} us a block, "
                   f"{rec['ns_a_symbol']:.3f} ns a symbol, "
-                  f"{np.mean(ms) / floor:.2f}x the floor{tag}", flush=True)
-        del runs, whole, first
+                  f"{np.mean(ms) / floor:.2f}x the floor{tag}{extra}",
+                  flush=True)
+        del runs, whole
     if a.out:
         with open(a.out, "w") as f:
             json.dump(out, f, indent=1)
-    bad = [(d, s, v) for d in designs for s in SHAPES
-           for v, r in out[d][s].items() if r["exact"] is False]
+    bad = [(s, v) for s in SHAPES for v, r in out[s].items()
+           if r["exact"] is False]
     if bad:
-        raise AssertionError(f"exact variants that part from their design: "
+        raise AssertionError(f"exact variants that part from the kernel: "
                              f"{bad}")
     return out
 

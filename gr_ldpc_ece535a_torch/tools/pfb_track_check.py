@@ -35,16 +35,11 @@ launch over ``blocks`` blocks against the plain version's run: the first
 block where the symbols part by more than 1e-5 and the hard decisions
 that differ.
 
-``routes`` holds the kernel's two routes to each other and to the
-shipped kernel: builds of the source at ROUTE_SYMS symbols a thread
-(``kSyms``; the shipped kernel takes one), one with the blocked route
-where a warp's groups share a row, one with every group on the
-per-symbol loop (``kBlocked`` false; ``_build.load_variants``), one
-launch each from the acquisition over ROUTE_BLOCKS blocks at each B of
-ROUTE_SHAPES, one for each cluster size the kernel takes (C = 1, 2, 4, 8,
-16; at C = 1 with one warp and two): the symbols and the state
-bit for bit, the shipped kernel's too (the sums take one tree whatever S
-is). On the CPU every side is the plain version.
+``clusters`` holds the kernel at each cluster size it takes (C = 1, 2,
+4, 8 and 16, the B of CLUSTER_SHAPES), over at most CLUSTER_BLOCKS blocks
+from the acquisition: ``steps``'s bars against the plain version, and
+``chained``'s one launch bit for bit the kernel one block a call. On the
+CPU every side is the plain version.
 
 ``times`` takes the kernel and its plain version by CUDA events at the
 chain's composed shape (2^24 samples, 8,192-symbol blocks, rate clip
@@ -67,10 +62,9 @@ from ._timing import time_decode, track_bound_ms, track_fmas
 from .bench_chain import SPS, impaired_stream
 
 __all__ = ["CASES", "FRAMES", "MAIN_FRAMES", "BLOCKS", "SYM_TOL", "RATE_TOL",
-           "ROUTE_SHAPES", "ROUTE_BLOCKS", "ROUTE_SYMS", "chain_input",
-           "setup", "run_kernel", "steps", "chained", "whole_run",
-           "route_builds", "launcher",
-           "routes", "check", "timed_shapes", "times", "main"]
+           "CLUSTER_SHAPES", "CLUSTER_BLOCKS", "chain_input", "setup",
+           "run_kernel", "steps", "chained", "whole_run", "clusters", "check",
+           "timed_shapes", "times", "main"]
 
 CASES = ((64, 0.002), (2048, 2.5e-4), (8192, 2.5e-4))
 FRAMES = 1 << 14               # 2^21 samples: 127 blocks of 8,192 symbols
@@ -79,12 +73,10 @@ BLOCKS = 64
 SYM_TOL, RATE_TOL = 1e-5, 1e-6
 NAN_AT, INF_AT = 300, 301      # inside the third 64-symbol block
 SEGMENT = 16384                # blocks/dsp.py's PfbClockSyncBlock
-# (block symbols, rate clip) at each cluster size: C = 1 (one warp at 64
-# and 128 symbols, two at 256, at 4 symbols a thread), 2, 4, 8, 16
-ROUTE_SHAPES = ((64, 0.002), (128, 0.002), (256, 0.002), (1024, 2.5e-4),
-                (2048, 2.5e-4), (4096, 2.5e-4), (8192, 2.5e-4))
-ROUTE_BLOCKS = 16
-ROUTE_SYMS = 4
+# (block symbols, rate clip) at each cluster size: C = 1, 2, 4, 8, 16
+CLUSTER_SHAPES = ((64, 0.002), (1024, 2.5e-4), (2048, 2.5e-4),
+                  (4096, 2.5e-4), (8192, 2.5e-4))
+CLUSTER_BLOCKS = 16
 TRACK = {"sps": SPS, "nfilts": 32, "excess_bw": 0.35, "ntaps_per": 11,
          "probe_syms": 256}
 
@@ -221,72 +213,21 @@ def whole_run(xp: torch.Tensor, block_syms: int, rate_clip: float,
             "plain_state": [float(v) for v in sp]}
 
 
-def route_builds() -> dict:
-    """The tracker's library built at ROUTE_SYMS symbols a thread, with the
-    blocked route ("blocked") and with every group on the per-symbol loop
-    ("per-symbol"): the route bar's sides."""
-    from ..ops import _build
-
-    src = _build.SOURCES["pfb_track"].read_text()
-    syms = ("constexpr int kSyms = 1;", f"constexpr int kSyms = {ROUTE_SYMS};")
-    subs = {"blocked": (syms,),
-            "per-symbol": (syms, ("constexpr bool kBlocked = true;",
-                                  "constexpr bool kBlocked = false;"))}
-    texts = {}
-    for name, pairs in subs.items():
-        text = src
-        for old, new in pairs:
-            if text.count(old) != 1:
-                raise ValueError(f"pfb_track.cu holds {text.count(old)} of "
-                                 f"{old!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    return dict(zip(texts, _build.load_variants("pfb_track",
-                                                list(texts.values()))))
-
-
-def launcher(lib, xpp, banks, state, loop):
-    """A launch of ``lib``'s kernel (a library built from pfb_track.cu or a
-    variant) into buffers made once: a callable returning the (2, nblocks
-    *B) symbols and the state; no launch count."""
-    ys = torch.empty((2, loop.nblocks, loop.block_syms), dtype=torch.float32,
-                     device=xpp.device)
-    out = [torch.empty_like(t).reshape(()) for t in state]
-    args = cuda_dsp.track_args(xpp, *banks, state, loop, ys, out)
-    stream = torch.cuda.current_stream(xpp.device).cuda_stream
-
-    def launch():
-        err = lib.pfb_track(*args, stream)
-        if err:
-            raise RuntimeError(lib.pfb_track_error_string(err).decode())
-        return ys.reshape(2, -1), out
-    return launch
-
-
-def routes(xp: torch.Tensor, blocks: int = ROUTE_BLOCKS) -> dict:
-    """The blocked route against the per-symbol route and the shipped
-    kernel: one launch each over ``blocks`` blocks at each ROUTE_SHAPES
-    entry, from the acquisition; whether the symbols and the state are the
-    same bits on all three."""
-    libs = route_builds() if xp.device.type == "cuda" else {}
+def clusters(xp: torch.Tensor, blocks: int = CLUSTER_BLOCKS) -> dict:
+    """The kernel at each cluster size (CLUSTER_SHAPES) over at most
+    ``blocks`` blocks: ``steps``'s record with ``C`` and ``one_launch``
+    (``chained``'s bit-for-bit bar) beside it, ``ok`` where both hold."""
     rec = {}
-    for B, rc in ROUTE_SHAPES:
-        xpp, banks, taps, loop, state = setup(xp, B, rc)
-        lp = loop._replace(nblocks=min(blocks, loop.nblocks))
-        geo = cuda_dsp.track_geometry(B, loop.sps, loop.nfilts, loop.ntaps,
-                                      loop.width, rc, loop.gain, ROUTE_SYMS)
-        runs = [run_kernel(xpp, banks, taps, state, lp)]
-        for name in ("blocked", "per-symbol"):
-            runs.append(launcher(libs[name], xpp, banks, state, lp)()
-                        if libs else
-                        dsp._pfb_track_plain(xpp, taps, state, lp))
-        bits = [[_bits(ys)] + [_bits(t) for t in st] for ys, st in runs]
-        rec[f"B={B}"] = {
-            "C": geo.C, "S": geo.S, "blocks": lp.nblocks,
-            "equal": lp.nblocks > 0 and all(
-                all(torch.equal(a, b) for a, b in zip(bits[0], other))
-                for other in bits[1:])}
-    rec["ok"] = all(r["equal"] for r in rec.values())
+    for B, rc in CLUSTER_SHAPES:
+        n = min(blocks, CLUSTER_BLOCKS)
+        r = steps(xp, B, rc, n)
+        loop = setup(xp, B, rc)[3]
+        r["C"] = cuda_dsp.track_geometry(B, loop.sps, loop.nfilts, loop.ntaps,
+                                         loop.width, rc, loop.gain).C
+        r["one_launch"] = chained(xp, B, rc, n)["ok"]
+        r["ok"] &= r["one_launch"]
+        rec[f"B={B}"] = r
+    rec["ok"] = all(r["ok"] for r in rec.values())
     return rec
 
 
@@ -294,9 +235,9 @@ def check(device="cuda", frames: int = FRAMES, blocks: int = BLOCKS,
           main_frames: int = MAIN_FRAMES, log=print) -> dict:
     """Raise unless the kernel holds the bars at every case of CASES, one
     launch equals the kernel a block a call at the main path's shapes
-    (``timed_shapes(device, main_frames)``), and the kernel holds the bars
-    on the non-finite stream and on a stream with no whole block; return
-    {case name: record}."""
+    (``timed_shapes(device, main_frames)``), the kernel holds both at each
+    cluster size (``clusters``), and the bars on the non-finite stream and
+    on a stream with no whole block; return {case name: record}."""
     device = torch.device(device)
     xp = chain_input(frames, device)
     out = {}
@@ -306,7 +247,7 @@ def check(device="cuda", frames: int = FRAMES, blocks: int = BLOCKS,
         out[f"B={B}"] = rec
     for name, (x, B, rc) in timed_shapes(device, main_frames).items():
         out[f"one launch, {name}"] = chained(x, B, rc)
-    out["routes"] = routes(xp)
+    out["clusters"] = clusters(xp, blocks)
     bad = xp.clone()
     bad[0, NAN_AT], bad[1, INF_AT] = math.nan, math.inf
     out["non-finite"] = steps(bad, *CASES[0], blocks)

@@ -18,9 +18,8 @@ held here:
   at every r in [1, R - 2];
 - its geometry (``cuda_dsp.track_geometry``, the source's ``geometry``):
   C from B alone, each CTA's slice inside one half, the threads and the
-  shared memory a CTA; and the pipelined loads of its blocked route,
-  which must read for each symbol and column what the per-symbol loop
-  reads;
+  shared memory a CTA; every read of a symbol's window lies in the staged
+  tile, wherever the prefetched span put it;
 - its prefetch span (``cuda_dsp.track_span``): the next window's start
   lies in it for every finite state and every tau the update can give,
   and a NaN or saturated state falls outside it (the exact reload);
@@ -30,9 +29,10 @@ held here:
   library refuses the launch;
 - the dispatch: the public functions run the plain version on a CPU tensor
   and launch nothing; a stream with no whole block keeps its state;
-- the check tool's run on the CPU (the plain version on every side),
-  faults its one-launch check catches, the route bar's two builds and
-  the probe's variants (each finds its text in its source).
+- the check tool's run on the CPU (the plain version on every side, at
+  each cluster size too), faults its one-launch check catches, and the
+  probe's variants (each finds its text in the source, and raises where
+  the source lacks it).
 
 The plain version's bars against JAX stay in tests/test_torch_dsp.py.
 """
@@ -159,7 +159,7 @@ def test_kernel_geometry(B, rc):
     g = cuda_dsp.track_geometry(B, SPS, NFILTS, loop.ntaps, loop.width, rc,
                                 loop.gain)
     assert g.C == {64: 1, 2048: 4, 8192: 16}[B] and g.C * g.slice == B
-    assert g.threads * g.S >= g.tile and g.threads <= 1024
+    assert g.threads >= g.tile and g.threads <= 1024
     assert g.ntiles * g.tile >= g.slice and g.smem <= 227 * 1024
     assert loop.gain == float(np.clip(0.7 * B / 1024.0, 0.15, 0.7))
 
@@ -171,19 +171,12 @@ def test_kernel_geometry(B, rc):
 def test_track_geometry_follows_the_rules(B, rc):
     """For every B: C depends on B alone, is a power of two up to
     TRACK_MAX_CLUSTER, and slices B into power-of-two slices of
-    TRACK_CTA_SYMS or more, each inside one half; S is kSyms (the shipped
-    TRACK_SYMS and the route bar's 4) where it divides a half, else 1; a
-    tile's groups fit the threads (the launch bound); a staged plane holds
-    the tile's window and the prefetch's span; the shared memory a CTA
-    stays within 227 KB."""
+    TRACK_CTA_SYMS or more, each inside one half; a tile's symbols fit
+    the threads (the launch bound); a staged plane holds the tile's window
+    and the prefetch's span; the shared memory a CTA stays within 227 KB."""
     _, _, loop = _loop(B, rc, n=1 << 22)
-    for most in sorted({cuda_dsp.TRACK_SYMS, 4}):
-        _geometry_rules(B, rc, loop, most)
-
-
-def _geometry_rules(B, rc, loop, most):
     g = cuda_dsp.track_geometry(B, SPS, NFILTS, loop.ntaps, loop.width, rc,
-                                loop.gain, most)
+                                loop.gain)
     assert g.C == cuda_dsp.track_cluster(B)
     assert g.C in (1, 2, 4, 8, 16) and g.C * g.slice == B
     if g.C > 1:
@@ -191,15 +184,14 @@ def _geometry_rules(B, rc, loop, most):
         assert g.slice >= cuda_dsp.TRACK_CTA_SYMS
         # every slice inside one half: the half boundary is a slice boundary
         assert (B // 2) % g.slice == 0
-    assert g.S == (most if (B // 2) % most == 0 else 1)
-    assert g.threads % 32 == 0 and g.threads * g.S >= g.tile
-    assert g.threads <= cuda_dsp.track_max_threads(g.S) <= 512
-    assert g.tile <= cuda_dsp.TRACK_TILE and g.ntiles * g.tile >= g.slice
+    assert g.threads % 32 == 0 and g.threads >= g.tile
+    assert g.threads <= cuda_dsp.TRACK_TILE <= 1024
+    assert g.ntiles * g.tile >= g.slice
     assert g.margin == cuda_dsp.track_margin(B, SPS, rc, loop.gain) >= 2
     # a staged plane: tile + 1 + width/sps words and the span's 2*margin
-    # samples, pads included
+    # samples
     words = g.tile + 1 + loop.width // SPS + -(-2 * g.margin // SPS)
-    assert g.planes >= words + (words // g.S if g.S > 1 else 0)
+    assert g.planes >= words
     assert g.smem <= 227 * 1024
 
 
@@ -211,76 +203,47 @@ def test_kernel_constants_are_the_sources():
                         ("kPad", cuda_dsp.TRACK_PAD),
                         ("kMaxCluster", cuda_dsp.TRACK_MAX_CLUSTER),
                         ("kCtaSyms", cuda_dsp.TRACK_CTA_SYMS),
-                        ("kSyms", cuda_dsp.TRACK_SYMS),
                         ("kNoFit", cuda_dsp.TRACK_NO_FIT)):
         assert f"constexpr int {name} = {value};" in src, name
-    assert "constexpr bool kBlocked = true;" in src
     assert "constexpr bool kPrefetch = true;" in src
-    assert "return S == 4 ? 256 : 512;" in src
+    assert "__launch_bounds__(kTileSyms, 1)" in src
 
 
-def _per_symbol_reads(S, sps, d, delta, g, L):
-    """The per-symbol loop's (plane, word) for each symbol s and column c:
-    q = delta + (g + s + 1)*sps + d - 1 + c."""
-    return {(s, c): ((q := delta + (g + s + 1) * sps + d - 1 + c) % sps,
-                     q // sps)
-            for s in range(S) for c in range(L + 2)}
-
-
-def _columns_reads(N, sps, d, delta, g, L):
-    """The pipelined column loop's reads, transcribed (csrc/pfb_track.cu's
-    ``columns``): the N words loaded for column c + 1 before column c's
-    products, then rotated in; {(n, c): the word symbol n's products at
-    column c use}."""
-    ncol, q0 = L + 2, delta + (g + 1) * sps + d - 1
-    ph, off = q0 % sps, q0 // sps
-    w = [(ph, off + n) for n in range(N)]
-    out = {}
-    for c in range(ncol):
-        ph += 1
-        if ph == sps:
-            ph, off = 0, off + 1
-        wn = list(w)
-        if c + 1 < ncol:
-            wn = [(ph, off + n) for n in range(N)]
-        for n in range(N):
-            out[n, c] = w[n]
-        w = wn
-    return out
-
-
-@pytest.mark.parametrize("S", [1, 2, 4])
 @pytest.mark.parametrize("sps", [1, 2, 3, 4])
-def test_blocked_route_reads_what_the_per_symbol_route_reads(S, sps):
-    """For each symbol of a group and each column, the blocked route's
-    pipelined loads give the word the per-symbol loop reads (its own
-    columns from q0 + s*sps, one symbol at a time), at every row column d,
-    prefetch offset delta and group start, for L = 23 and 21."""
-    for L in (23, 21):
-        for d in range(0, 9):
-            for delta in (0, 1, 5):
-                for g in (0, S, 7 * S):
-                    blocked = _columns_reads(S, sps, d, delta, g, L)
-                    alone = {(s, c): w for s in range(S) for (_, c), w in
-                             _columns_reads(1, sps, d, delta, g + s,
-                                            L).items()}
-                    assert blocked == alone == \
-                        _per_symbol_reads(S, sps, d, delta, g, L)
+@pytest.mark.parametrize("B,rc", SHAPES)
+def test_symbol_reads_lie_in_the_staged_tile(B, rc, sps):
+    """Every word a tile's symbol reads, on either path (columns d - 1 ..
+    d + L, or the whole window), lies in the count samples staged for the
+    tile from its offset delta, at every row and every delta a hit of the
+    prefetched span can give (0 .. 2*margin); and the span staged, 2*margin
+    + count samples, fits the staged planes."""
+    bank, dbank = P.polyphase_rrc_banks(sps, NFILTS)
+    loop = P._pfb_loop(1 << 22, bank.shape[1], sps, NFILTS, B, rc)
+    L, T2 = loop.ntaps, loop.width
+    g = cuda_dsp.track_geometry(B, sps, NFILTS, L, T2, rc, loop.gain)
+    ts = g.tile                                    # the fullest tile
+    count = (ts + 1) * sps + T2
+    assert -(-(2 * g.margin + count) // sps) <= g.planes
+    ds = {r // NFILTS for r in range(1, loop.rows - 1)}
+    for delta in (0, 1, g.margin, 2 * g.margin):
+        for kk in (0, ts - 1):
+            base = delta + (kk + 1) * sps
+            for d in ds:
+                fast = (base + d - 1, base + d + L)      # first, last
+                assert delta <= fast[0] and fast[1] < delta + count
+            assert base + T2 - 1 < delta + count        # the whole window
 
 
-def _phys(w, S):
-    return w + w // S if S > 1 else w
-
-
-@pytest.mark.parametrize("S", [2, 4])
-def test_padded_plane_has_no_bank_conflicts(S):
-    """A warp's load of one word a lane, lane l at word w0 + l*S (its
-    group's), hits 16 distinct 8-byte slots of a 128-byte line in each
-    half-warp, at every offset w0."""
-    for w0 in range(64):
-        for half in (range(16), range(16, 32)):
-            slots = {_phys(w0 + lane * S, S) % 16 for lane in half}
-            assert len(slots) == 16
+@pytest.mark.parametrize("variant", list(probe.KNOBS))
+def test_probe_variant_raises_without_its_text(variant):
+    """A source that lacks a knob's text (or holds it twice) is refused,
+    not timed as if the knob were turned."""
+    src = probe._build.SOURCES["pfb_track"].read_text()
+    old = probe.KNOBS[variant][0]
+    with pytest.raises(ValueError, match="holds 0"):
+        probe.variant_source(src.replace(old, ""), variant)
+    with pytest.raises(ValueError, match="holds 2"):
+        probe.variant_source(src + old, variant)
 
 
 def _f32(v):
@@ -433,7 +396,7 @@ def test_check_tool_on_the_cpu():
     res = tc.check("cpu", frames=1024, blocks=3, main_frames=512,
                    log=lambda *a: None)
     assert set(res) == {"B=64", "B=2048", "B=8192", "one launch, composed",
-                        "one launch, segment", "routes", "non-finite",
+                        "one launch, segment", "clusters", "non-finite",
                         "short"}
     for B, _ in tc.CASES:
         rec = res[f"B={B}"]
@@ -446,9 +409,11 @@ def test_check_tool_on_the_cpu():
     assert res["one launch, composed"]["blocks"] >= 2
     for name in ("one launch, composed", "one launch, segment"):
         assert res[name]["ok"] and res[name]["first_unequal_block"] is None
-    assert res["routes"]["ok"]
-    assert sorted({r["C"] for k, r in res["routes"].items() if k != "ok"}) \
-        == [1, 2, 4, 8, 16]
+    assert res["clusters"]["ok"]
+    per_c = [r for k, r in res["clusters"].items() if k != "ok"]
+    assert sorted(r["C"] for r in per_c) == [1, 2, 4, 8, 16]
+    assert all(r["one_launch"] and r["max_abs_err"] == 0.0 and
+               r["blocks"] >= 1 for r in per_c)
     assert res["non-finite"]["ok"] and res["non-finite"]["nan_blocks"] > 0
     assert res["short"]["ok"] and res["short"]["symbols"] == 0
 
@@ -524,43 +489,33 @@ def test_refused_cluster_launch_raises_without_a_retry():
     assert lib.calls == 1 and cuda_dsp.LAUNCHES == before
 
 
-@pytest.mark.parametrize("design,variant", [
-    (d, v) for d in probe.VARIANTS for v in probe.VARIANTS[d]])
-def test_probe_variants_find_their_text(design, variant):
+@pytest.mark.parametrize("variant", probe.VARIANTS)
+def test_probe_variants_find_their_text(variant):
     """Each of tools/pfb_probe.py's variants turns its knob (or stubs its
-    part) in its design's source, found there once; "as built" is the
-    source itself."""
-    src = (probe.PARENT_SOURCE if design == "parent"
-           else probe._build.SOURCES["pfb_track"]).read_text()
-    text = probe.variant_source(src, design, variant)
+    part) in the source, found there once; "as built" is the source
+    itself."""
+    src = probe._build.SOURCES["pfb_track"].read_text()
+    text = probe.variant_source(src, variant)
     assert (text == src) == (variant == "as built")
+
+
+def test_probe_reads_ptxas_summary():
+    """The probe's one clause a kernel instance from an nvcc build log."""
+    log = ("ptxas info    : Compiling entry function '_Z16pfb_track_kernel' "
+           "for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z16pfb_track_kernel\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 64 registers, used 1 barriers\n")
+    assert probe._ptxas(log) == ("0 bytes stack frame, 0 bytes spill stores, "
+                                 "0 bytes spill loads; Used 64 registers, "
+                                 "used 1 barriers")
 
 
 def test_probe_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         probe.main([])
-
-
-def test_route_builds_turn_the_route_knobs(monkeypatch):
-    """The route bar's two builds: kSyms = ROUTE_SYMS with the blocked
-    route, and the same with kBlocked false; nothing else changes."""
-    seen = {}
-
-    def fake(name, texts):
-        seen[name] = list(texts)
-        return [object() for _ in texts]
-
-    monkeypatch.setattr(probe._build, "load_variants", fake)
-    libs = tc.route_builds()
-    assert set(libs) == {"blocked", "per-symbol"}
-    src = probe._build.SOURCES["pfb_track"].read_text()
-    blocked, alone = seen["pfb_track"]
-    syms = f"constexpr int kSyms = {tc.ROUTE_SYMS};"
-    assert syms in blocked and "constexpr bool kBlocked = true;" in blocked
-    assert alone == blocked.replace("constexpr bool kBlocked = true;",
-                                    "constexpr bool kBlocked = false;")
-    assert blocked.replace(syms, "constexpr int kSyms = 1;") == src
 
 
 def test_clock_sync_block_counts_its_segments(monkeypatch):
@@ -612,16 +567,16 @@ def test_track_kernel_matches_plain_version_on_gpu():
     before = cuda_dsp.LAUNCHES[cuda_dsp.TRACKER]
     P.pfb_clock_sync_pairs(xp, sps=SPS)
     assert cuda_dsp.LAUNCHES[cuda_dsp.TRACKER] - before == 1
-    # the blocked route against the per-symbol route, bit for bit, at each
-    # cluster size; and each cluster fits the card
-    rec = tc.routes(xp)
+    # the bars at each cluster size; each cluster fits the card, and the
+    # library's geometry is the mirror's
+    rec = tc.clusters(xp)
     assert rec["ok"], rec
-    assert sorted({r["C"] for k, r in rec.items() if k != "ok"}) == \
+    assert sorted(r["C"] for k, r in rec.items() if k != "ok") == \
         [1, 2, 4, 8, 16]
-    for B, rc in tc.ROUTE_SHAPES:
+    for B, rc in tc.CLUSTER_SHAPES:
         loop = tc.setup(xp, B, rc)[3]
         assert cuda_dsp.track_clusters(loop) >= 1
-        g = (ctypes.c_int * 9)()
+        g = (ctypes.c_int * 8)()
         from gr_ldpc_ece535a_torch.ops._build import load_library
         load_library("pfb_track").pfb_track_geometry(
             B, loop.sps, loop.nfilts, loop.ntaps, loop.width,
