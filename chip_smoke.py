@@ -21,7 +21,12 @@ Phases, each of which raises on a miss:
               each study kernel's static SASS instructions (cuobjdump) and
               fails unless every unrolled instance has more than its
               unroll-1 sibling; the SASS of the w-major SPA kernels'
-              log tanh(x/2) (bp_phi_probe) by pipe, and how many blocks of
+              log tanh(x/2) (bp_phi_probe) by pipe, and of each function of
+              the study's check steps (bp_study's probe kernels: on the
+              MUFU, no call, its log_tanh_half the shipped one's SASS); every
+              study instance's registers, spills and blocks an SM beside the
+              shipped tile SPA's, and every shipped SPA kernel's registers
+              and spills held to SHIPPED_SPA_PTXAS; how many blocks of
               each w-major tile and of the exact kernels an SM holds
               (occupancy); for block_32_64, sim_50_100 and gen_200_400, the
               instance the tile and exact kernels take (a register tier or
@@ -30,7 +35,12 @@ Phases, each of which raises on a miss:
   phi      the SPA kernels' log tanh(x/2) alone on the card, on 10^5 points
               in [2^-20, 40] and at 0, 1e-30, 87, 88, 1e30, inf and NaN,
               against float64: |error| <= max(2^-16 |phi|, 2^-20), beside
-              the error of libm's f32 logf(tanhf)
+              the error of libm's f32 logf(tanhf); each MUFU function of the
+              study's check steps (csrc/bp_study.cu: the explog log tanh,
+              tanh(x/2), log((1+T)/(1-T)), log1p(T) - log1p(-T)) at the same
+              bar on its domain, infinities and NaN exactly, a subnormal
+              argument as 0, and the study's log_tanh_half bit for bit the
+              shipped one
   3. kernels  each CUDA kernel against its plain PyTorch version on the same
               rx: the tile kernels at 131,072 codewords, Eb/N0 4 dB, 20
               iterations, both methods x both modes x both forms, plus edge
@@ -48,19 +58,30 @@ Phases, each of which raises on a miss:
               sweeps of phase 4 (sim_50_100 125,000 x 5, gen_256_512
               131,072 x 20, early exit);
               impl="split" against the tile; every study instance at
-              131,072 x 20 against its plain version, and the study variants
-              whose arithmetic is study_phi's (the libm phi the shipped SPA
-              had before its SFU check step; or explog's) against it, 0
-              mismatching frames, and the shipped tile SPA against study_phi
-              (the fixed contract below); the SPA
-              aggregation-precision instances also at 0 and 1 step and on a
-              saturating rx (0), and their agreement with the shipped precise
-              SPA (>= 99% for the bf16 and hi/lo phi forms); every min-sum
+              131,072 x 20 against its IEEE plain version: 0 mismatching
+              frames for study_phi_libm (the libm phi the shipped SPA had
+              before its SFU check step) and the instances with no
+              transcendental, the fixed contract below for every MUFU
+              instance, and at 2, 5 and 20 steps at most
+              cuda_study.MIRROR_MAX_SHARE of its frames (8 of 131,072) off
+              its plain version on the
+              kernels' own algorithms, a bar that must lie under half the
+              rounding forms' distance from the shipped SPA; study_phi against
+              the shipped tile SPA (0: it is that kernel's fixed form), the
+              study variants whose arithmetic is study_phi's (or explog's)
+              against it (0), and study_phi_libm against the shipped kernel
+              (the fixed contract); every study instance at 0 and 1 step and
+              on a saturating rx against its plain version on the kernels'
+              algorithms (0), and the SPA aggregation-precision instances'
+              agreement with the shipped precise SPA (>= 99% for the bf16
+              and hi/lo phi forms); every min-sum
               study instance likewise, study_ms_ref against the shipped
               precise min-sum (0), and the bf16-aggregation instances'
               agreement with it (>= 99%); the ten instances of the loop-unroll
               study (proto_r3c, proto_r4) also at 0, 1, 2 and 5 steps and on
-              the saturating rx, each unrolled instance against its unroll-1
+              the saturating rx (the SPA forms at 2 and 5 steps under the
+              fixed contract and the mirror bar), each unrolled instance
+              against its unroll-1
               sibling at 131,072 x 20 (0 mismatching frames each), and the
               textbook SPA's agreement and frame error share against the sent
               codewords beside the shipped SPA's (no bar).
@@ -249,11 +270,14 @@ Phases, each of which raises on a miss:
   5. times    CUDA-event times of kernel and plain version, host-clock time of
               the whole forward and of each sweep point; the large-code
               kernels' early exit at the gen_256_512 sweep's shape; the tile
-              SPA against study_phi and study_stub, interleaved; each SPA
-              kernel's MUFU floor (sfu_ms) at the SM clock it ran at, and
-              the exact SPA's MUFU and issue floors of its tanhf, division
-              and logf (tools/issue_model.py exact_mix); the studies' tables
-              (the SPA aggregation-precision rows as ratios to study_phi);
+              SPA against study_phi (within STUDY_PHI_TIME of it),
+              study_phi_libm and study_stub, interleaved; each SPA kernel's
+              MUFU floor (sfu_ms) at the SM clock it ran at, each SPA study
+              instance's at the clock the study's instances hold in turn
+              back to back, and the exact SPA's MUFU and issue floors of its
+              tanhf, division and logf (tools/issue_model.py exact_mix); the
+              studies' tables (every SPA row also as a ratio to study_phi,
+              beside its MUFU floor);
               the unroll table: each unrolled instance timed against its
               unroll-1 sibling in one interleaved run, with its SASS count,
               registers and spills; the receive's wall by host clock
@@ -291,7 +315,9 @@ once, decisions written once) over HBM_BYTES_S and its f32 operations
 (tools/_timing.py OPS_PER_EDGE) over F32_OPS_S, at the shape it was timed;
 the two w-major SPA records also carry sfu_ms: the MUFU instructions of
 their log tanh (counted in its SASS), two an edge and check step, at 16 a
-clock an SM; the exact SPA's sfu_ms and issue_ms are the MUFU and all
+clock an SM, and so does every SPA study instance's (its check step's
+functions, counted in their probes' SASS, tools/issue_model.py
+study_sfu_ms); the exact SPA's sfu_ms and issue_ms are the MUFU and all
 instructions of its tanhf, IEEE division and logf, once an edge and
 iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
 carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
@@ -329,6 +355,18 @@ FIXED_MIN_AGREE = 0.99         # fixed iterations: frame agreement
 FIXED_MAX_SUCC_GAP = 0.01      # fixed iterations: syndrome-success share gap
 FER_MAX = {"sumproduct": 0.03, "minsum": 0.005}   # payload frames, 5 dB
 EXACT_MIN_AGREE = 0.999        # exact kernel vs the f32 path: frame agreement
+STUDY_PHI_TIME = 0.02          # study_phi vs the shipped tile SPA, interleaved
+# the shipped SPA kernels (their check step from csrc/sfu.cuh, the header
+# the study shares): ptxas's registers and spill store/load bytes a row
+# weight, as the parent of that header built them with CUDA 12.8's nvcc
+# for sm_90a (phase 2 holds them)
+SHIPPED_SPA_PTXAS = {
+    "tile": {8: (60, (0, 0)), 7: (48, (20, 20)), 6: (48, (4, 4)),
+             5: (47, (0, 0)), 4: (44, (0, 0)), 3: (44, (0, 0)),
+             2: (40, (0, 0))},
+    "large": {8: (53, (0, 0)), 7: (54, (0, 0)), 6: (56, (0, 0)),
+              5: (54, (0, 0)), 4: (54, (0, 0)), 3: (56, (0, 0)),
+              2: (56, (0, 0))}}
 LARGE_FRAMES = 16384
 SWEEP_REF = "results/waterfall_sim_50_100_4dec_1e6.json"
 SWEEP_FRAMES = 1_000_000
@@ -358,10 +396,12 @@ REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
             "bp_minsum_exact": f"{_PALLAS}:207"}
 STUDY_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study.cu"
 # study instance -> the prototype kernel it stands for (study_phi is also
-# proto_r3b.py:192's "full" and proto_r4b.py:34's "phi")
+# proto_r3b.py:192's "full" and proto_r4b.py:34's "phi"; study_phi_libm is
+# proto_r3b's base with the libm phi)
 STUDY_REPLACES = {
     **{n: "tools/proto_r3b.py:85" for n in (
-        "study_phi", "study_phi_x2", "study_explog", "study_explog_x2")},
+        "study_phi", "study_phi_x2", "study_explog", "study_explog_x2",
+        "study_phi_libm")},
     **{n: "tools/proto_r3b.py:192" for n in (
         "study_stub", "study_phi_noagg", "study_phi_bf16")},
     "study_tanhprod": "tools/proto_r4b.py:34",
@@ -384,6 +424,8 @@ STUDY_REPLACES = {
 SP_NEW = ("study_sp_split", "study_phi_bf16all", "study_psprod",
           "study_phi_hilo", "study_phi_hilo2", "study_psprod1p")
 SP_FAST = ("study_phi_bf16all", "study_phi_hilo", "study_phi_hilo2")
+# the phi forms that round the loop's sums (bf16, hi/lo), and the split's
+SP_ROUNDED = SP_FAST + ("study_sp_split",)
 STUDY_MS_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study_ms.cu"
 # min-sum study instance -> the prototype kernel it stands for (study_ms_ref
 # is the shipped tile min-sum's arithmetic, which proto_r2 "current" computed
@@ -479,8 +521,8 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.tools.issue_model import (
         LOOP_LATENCY, by_pipe, exact_floor_ms, exact_minsum_wavefronts,
         exact_mix, loop_chain, minsum_wavefronts, probe_sass, sass_dump,
-        sass_functions, sass_instructions, shipped_phi, under_load,
-        wavefront_ms)
+        sass_functions, sass_instructions, shipped_phi, study_probe_mix,
+        study_sfu_ms, under_load, wavefront_ms)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -536,6 +578,17 @@ def main() -> int:
                 if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", line):
                     spills[name] = (int(m[1]), int(m[2]))
+    shipped_ptxas = {
+        (tile, wr): (regs.get(k := f"bp_kernel<WR={wr}, sumproduct, {tile}>"),
+                     spills.get(k))
+        for tile, by_wr in SHIPPED_SPA_PTXAS.items() for wr in by_wr}
+    if shipped_ptxas != {(tile, wr): v for tile, by_wr
+                         in SHIPPED_SPA_PTXAS.items()
+                         for wr, v in by_wr.items()}:
+        raise AssertionError(f"the shipped SPA kernels' registers and spills "
+                             f"moved: {shipped_ptxas}")
+    log(f"[build] the shipped SPA kernels' registers and spills as recorded "
+        f"(SHIPPED_SPA_PTXAS, {len(shipped_ptxas)} kernels)")
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
     slib = cuda_study._study_lib()    # checks its instance table
     mlib = cuda_study_ms._study_ms_lib()
@@ -603,6 +656,21 @@ def main() -> int:
         f"{by_pipe(phi_ops)}: {' '.join(phi_ops)}")
     if phi_mufu < 1 or "CALL" in phi_ops:
         raise AssertionError("log_tanh_half calls out instead of the SFU")
+    # the study's check-step functions (bp_study's probe kernels): each
+    # MUFU function on the SFU, no call out, and its log_tanh_half the
+    # shipped one's SASS (one header, csrc/sfu.cuh); their MUFU counts set
+    # each study instance's MUFU floor (phase 5)
+    study_fns = study_probe_mix(built["bp_study"][0])
+    study_mufu = {fn: ops.count("MUFU") for fn, ops in study_fns.items()}
+    for fn, ops in study_fns.items():
+        log(f"[build] {fn} (bp_study.cu probe), SASS by pipe: "
+            f"{by_pipe(ops)}: {' '.join(ops)}")
+        if fn != "log_tanh_half_libm" and (study_mufu[fn] < 1
+                                           or "CALL" in ops):
+            raise AssertionError(f"{fn} calls out instead of the SFU")
+    if study_fns["log_tanh_half"] != phi_ops:
+        raise AssertionError("the study's log_tanh_half is not the shipped "
+                             "kernel's")
     gen = {n: LdpcCode.from_h(make_ldpc(m, n, seed=1), name=f"gen_{m}_{n}")
            for m, n in ((200, 400), (256, 512), (320, 640))}
     # blocks an SM of each w-major tile; the large-code kernel also on
@@ -647,6 +715,16 @@ def main() -> int:
         log(f"[instance] tile minsum {c.name}: {inst}, {regs.get(inst, -1)} "
             f"registers, spills {spills.get(inst)}, {blocks} blocks of "
             f"{warps} warps an SM")
+    # every study instance's ptxas registers and spills and blocks an SM,
+    # beside the shipped tile SPA's (study_phi is that kernel's fixed form)
+    c = get_code("block_32_64")
+    tile_sp = "bp_kernel<WR=6, sumproduct, tile>"
+    log(f"[build] study instances at {c.name} (registers, spill store/load "
+        f"bytes, blocks an SM): the shipped tile SPA {regs.get(tile_sp, -1)}"
+        f", {spills.get(tile_sp)}, {cuda_bp.occupancy(c, 'tile', True)[0]}")
+    for n in cuda_study.INSTANCES:
+        log(f"    {n:22s} {regs.get(n, -1):3d} {str(spills.get(n)):9s} "
+            f"{cuda_study.occupancy(c, n)}")
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
                                     "sim_24_48", "sim_50_100")] + list(gen.values()):
         t, x = wmajor_tables(c), check_major_tables(c)
@@ -712,6 +790,53 @@ def main() -> int:
         raise AssertionError("log_tanh_half misses float64 beyond its bar, "
                              "or a special value")
     del xs, phis
+    # the study's check-step functions (bp_study_probe) against float64,
+    # each at its bar max(2^-16 |y|, 2^-20): the two log tanh(x/2) on the
+    # grid above, tanh(x/2) on it and its negation, log((1+T)/(1-T)) and
+    # log1p(T) - log1p(-T) on T near 0 and near +-1; an infinite or NaN
+    # value exactly, and a subnormal argument as 0 (the MUFU flushes it);
+    # the study's log_tanh_half bit for bit the shipped kernel's
+    ends = np.concatenate([1.0 - np.geomspace(2.0 ** -24, 1.0, 50_000),
+                           np.geomspace(2.0 ** -20, 1.0, 50_000)])
+    logs = np.concatenate([grid, [0.0, 1e-30, 87.0, 88.0, 1e30, np.inf,
+                                  np.nan]])
+    domains = {
+        "log_tanh_half": logs, "log_tanh_half_explog": logs,
+        "tanh_half": np.concatenate([grid, -grid, [0.0, -0.0, 17.5, 88.0,
+                                                   np.inf, -np.inf, np.nan]]),
+        **dict.fromkeys(("log_ratio", "log1p_diff"), np.concatenate(
+            [ends, -ends, [0.0, 1.0, -1.0, cuda_study.PSPROD_CLIP,
+                           -cuda_study.PSPROD_CLIP, np.nan]]))}
+    for fn, x in domains.items():
+        x = np.concatenate([x, [1e-40, 0.0]]).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        yd = cuda_study.sfu_probe(fn, xd)
+        y, x64 = yd.cpu().double().numpy(), x.astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ref = (np.tanh(0.5 * x64) if fn == "tanh_half" else
+                   np.log1p(x64) - np.log1p(-x64) if fn.startswith("log1p")
+                   or fn == "log_ratio" else np.log(np.tanh(0.5 * x64)))
+            fin = np.isfinite(ref)
+            fin[-2:] = False
+            err = np.where(fin, np.abs(y - ref), 0.0)
+            bar = np.maximum(2.0 ** -16 * np.abs(ref), 2.0 ** -20)
+            worst = int(np.argmax(np.where(fin, err / bar, 0.0)))
+            odd = ~fin[:-2] & ~((y[:-2] == ref[:-2])
+                                | (np.isnan(y[:-2]) & np.isnan(ref[:-2])))
+        log(f"[phi] {fn} (bp_study.cu, SFU) vs float64 on {int(fin.sum())} "
+            f"finite points: worst {err[worst] / bar[worst]:.4f} of the bar "
+            f"max(2^-16 |y|, 2^-20) at x = {float(x[worst])!r}; "
+            f"{int(odd.sum())} infinite or NaN values off; subnormal "
+            f"{float(y[-2])!r}, 0 {float(y[-1])!r}")
+        if (not (err <= np.where(fin, bar, 0.0)).all() or odd.any()
+                or not (y[-2] == y[-1] or np.isnan(y[-2]) and np.isnan(y[-1]))
+                or fn.startswith("log_tanh") and not (y[fin] <= 0).all()):
+            raise AssertionError(f"{fn} misses float64 beyond its bar, or a "
+                                 f"special value")
+        if fn == "log_tanh_half" and not torch.equal(
+                yd.nan_to_num(), cuda_bp.phi_probe(xd).nan_to_num()):
+            raise AssertionError("the study's log_tanh_half differs from the "
+                                 "shipped kernel's")
 
     kernels = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                "minsum": cuda_bp.cuda_decode_minsum}
@@ -757,10 +882,12 @@ def main() -> int:
                 <= FIXED_MAX_SUCC_GAP)
 
     def compare(tag, vk, vp, code, early_exit, identical=False,
-                min_agree=None, mirror=None, two_valid_only=False, sent=None):
+                min_agree=None, mirror=None, two_valid_only=False, sent=None,
+                max_share=None):
         """Kernel vs plain: the four bins, and the contract of the form:
         identical decisions, or (min_agree) an agreement share with no two
-        valid codewords, or (two_valid_only) no two valid codewords, or the
+        valid codewords, or (max_share) at most that share of mismatching
+        frames, or (two_valid_only) no two valid codewords, or the
         precise contracts. ``mirror()``, given at the shapes of
         MIRROR_WITNESS, decodes the same rx with the plain decoder on the
         kernels' own log tanh algorithm: there the kernel keeps the
@@ -777,6 +904,8 @@ def main() -> int:
         elif min_agree is not None:
             good = (B - c["mismatch"] >= min_agree * B
                     and c["both_valid_different"] == 0)
+        elif max_share is not None:
+            good = c["mismatch"] <= max_share * B
         elif two_valid_only:
             good = c["both_valid_different"] == 0
         else:
@@ -1015,48 +1144,71 @@ def main() -> int:
                     f"{'early_exit' if early_exit else 'fixed'} {N_FRAMES}x"
                     f"{ITERATIONS}", vs, vg, code, early_exit, identical=True)
 
-    # the study instances against their plain versions, 0 mismatching frames:
-    # the variants decide nearly the same frames, so only identity shows that
-    # an instance ran its own arithmetic; the variants whose arithmetic is
-    # study_phi's against it, and the two-frames-a-thread forms against the
-    # one-frame forms
+    # the study instances against their plain versions at 131,072 x 20:
+    # study_phi_libm and the instances with no transcendental decide as their
+    # IEEE plain version on every frame (only identity shows that an
+    # instance ran its own arithmetic); each MUFU instance keeps the shipped
+    # tile SPA's fixed contract against it, and at 2, 5 and 20 steps decides
+    # as its plain version on the kernels' own algorithms (phi="mirror") on
+    # all but cuda_study.MIRROR_MAX_SHARE of the frames
     shape = f"{N_FRAMES}x{ITERATIONS} @{PARITY_EBN0_DB}dB"
     for name in cuda_study.INSTANCES:
         vk = cuda_study.study_decode(name, rx4, code, ITERATIONS)
         vp = cuda_study.study_plain(name, rx4, code, ITERATIONS)
         torch.cuda.synchronize()
+        sfu = cuda_study.uses_sfu(name)
         max_err[name] = compare(f"{name} vs plain {shape}", vk, vp, code, False,
-                                identical=True)
-    # study_phi is the tile SPA with the libm phi it had before its SFU
-    # check step: the prototypes' variants of that arithmetic against it
-    # (0), and the shipped kernel against it under the fixed contract
+                                identical=not sfu)
+        if not sfu:
+            continue
+        for steps in (2, 5, ITERATIONS):
+            compare(f"{name} vs plain (mirror) {N_FRAMES}x{steps} "
+                    f"@{PARITY_EBN0_DB}dB",
+                    vk if steps == ITERATIONS
+                    else cuda_study.study_decode(name, rx4, code, steps),
+                    cuda_study.study_plain(name, rx4, code, steps,
+                                           phi="mirror"), code, False,
+                    max_share=cuda_study.MIRROR_MAX_SHARE)
+    del vk, vp
+    # study_phi is the shipped tile SPA's fixed form: it decides every frame
+    # as that kernel does, and so do the prototypes' variants of its
+    # arithmetic; study_phi_libm, the same with libm's phi, keeps the fixed
+    # contract against the shipped kernel
     shipped = kernels["sumproduct"](rx4, code, ITERATIONS, mode="precise")
-    libm_phi = cuda_study.study_decode("study_phi", rx4, code, ITERATIONS)
+    phi = cuda_study.study_decode("study_phi", rx4, code, ITERATIONS)
+    libm_phi = cuda_study.study_decode("study_phi_libm", rx4, code,
+                                       ITERATIONS)
+    compare(f"study_phi vs the shipped tile SPA {shape}", phi, shipped, code,
+            False, identical=True)
     runs = {"proto_r3b base": proto_r3b.run("base", rx4, code, ITERATIONS),
             "proto_r3b full": proto_r3b.run_abl("full", rx4, code, ITERATIONS),
             "proto_r4b phi": proto_r4b.run("phi", rx4, code, ITERATIONS)}
     for tag, v in runs.items():
-        compare(f"{tag} vs study_phi {shape}", v, libm_phi, code, False,
+        compare(f"{tag} vs study_phi {shape}", v, phi, code, False,
                 identical=True)
-    compare(f"the shipped tile SPA (SFU phi) vs study_phi (libm phi) {shape}",
-            shipped, libm_phi, code, False)
-    sp_agree = {"study_phi": float((libm_phi == shipped).all(1).float().mean())}
+    compare(f"the shipped tile SPA (SFU phi) vs study_phi_libm (libm phi) "
+            f"{shape}", shipped, libm_phi, code, False)
+    sp_agree = {n: float((v == shipped).all(1).float().mean())
+                for n, v in (("study_phi", phi), ("study_phi_libm", libm_phi))}
     for two, one in (("skew2", "base"), ("skewlog", "explog")):
         compare(f"proto_r3b {two} vs {one} {shape}",
                 proto_r3b.run(two, rx4, code, ITERATIONS),
                 proto_r3b.run(one, rx4, code, ITERATIONS), code, False,
                 identical=True)
-    # the aggregation-precision instances: 0 and 1 step, and a saturating rx
-    # (inf and NaN must pass through kernel and plain version alike), 0
-    # mismatching frames; then each one's agreement with the shipped precise
-    # SPA on rx4
-    for name in SP_NEW:
+    # every instance at 0 and 1 step and on a saturating rx (inf and NaN
+    # must pass through kernel and plain version alike) against its plain
+    # version on the kernels' algorithms: 0 mismatching frames
+    for name in cuda_study.INSTANCES:
         for tag, rx, steps in (("iterations 0", rxi, 0), ("iterations 1", rxi, 1),
                                ("saturating rx (+-30)", sat, ITERATIONS)):
-            compare(f"{name} vs plain {tag}",
+            compare(f"{name} vs plain (mirror) {tag}",
                     cuda_study.study_decode(name, rx, code, steps),
-                    cuda_study.study_plain(name, rx, code, steps), code,
+                    cuda_study.study_plain(name, rx, code, steps,
+                                           phi="mirror"), code,
                     False, identical=True)
+    # the aggregation-precision instances' agreement with the shipped
+    # precise SPA on rx4
+    for name in SP_NEW:
         sp_agree[name] = float((cuda_study.study_decode(
             name, rx4, code, ITERATIONS) == shipped).all(1).float().mean())
         log(f"[kernels] {name} vs the shipped precise SPA {shape}: frame "
@@ -1064,7 +1216,16 @@ def main() -> int:
         if name in SP_FAST and not sp_agree[name] >= FIXED_MIN_AGREE:
             raise AssertionError(f"{name}: agreement {sp_agree[name]} with "
                                  f"the shipped precise SPA")
-    del shipped, runs, libm_phi
+        # the mirror bar tells a rounding form from the f32 one: were the
+        # kernel to drop its bf16 or lo-half rounding, it would decide as
+        # the shipped SPA and miss its mirror on more frames than the bar
+        if (name in SP_ROUNDED
+                and not 1 - sp_agree[name]
+                > 2 * cuda_study.MIRROR_MAX_SHARE):
+            raise AssertionError(f"{name}: within twice the mirror bar of the "
+                                 f"shipped precise SPA; the bar cannot tell "
+                                 f"its rounding")
+    del shipped, runs, phi, libm_phi
     # the min-sum study: each instance against its plain version (0), the
     # yardstick against the shipped precise min-sum (0), and each instance's
     # agreement with it: the bf16-aggregation candidates keep the fast
@@ -1098,11 +1259,24 @@ def main() -> int:
                    for n in cuda_study_ms.INSTANCES}}
     for name in UNROLL_NEW:
         dec, plain = decoders[name]
+        # a MUFU instance: 0, 1 step and the saturating rx against the
+        # mirror above; at 2 and 5 steps the fixed contract against its IEEE
+        # plain version and the mirror bar against its mirror
+        sfu = name in cuda_study.INSTANCES and cuda_study.uses_sfu(name)
         for tag, rx, steps in (("iterations 0", rxi, 0), ("iterations 1", rxi, 1),
                                ("iterations 2", rxi, 2), ("iterations 5", rxi, 5),
                                ("saturating rx (+-30)", sat, ITERATIONS)):
-            compare(f"{name} vs plain {tag}", dec(name, rx, code, steps),
-                    plain(name, rx, code, steps), code, False, identical=True)
+            if sfu and steps in (2, 5):
+                vk = dec(name, rx, code, steps)
+                compare(f"{name} vs plain {tag}", vk,
+                        plain(name, rx, code, steps), code, False)
+                compare(f"{name} vs plain (mirror) {tag}", vk,
+                        plain(name, rx, code, steps, phi="mirror"), code,
+                        False, max_share=cuda_study.MIRROR_MAX_SHARE)
+            elif not sfu:
+                compare(f"{name} vs plain {tag}", dec(name, rx, code, steps),
+                        plain(name, rx, code, steps), code, False,
+                        identical=True)
     for name, sib in siblings.items():
         dec = decoders[name][0]
         compare(f"{name} vs {sib} {shape}", dec(name, rx4, code, ITERATIONS),
@@ -1521,8 +1695,9 @@ def main() -> int:
                 log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
                     f"{ITERATIONS}: kernel {ms:.4f} ms "
                     f"({N_FRAMES * c.K / (ms / 1e3):.4e} info bit/s) [{card}]")
-    # the tile SPA against study_phi (its skeleton with the libm phi it had
-    # before its SFU check step) and study_stub (the skeleton, no
+    # the tile SPA against study_phi (its fixed form, which must time within
+    # STUDY_PHI_TIME of it), study_phi_libm (the same with the libm phi it
+    # had before its SFU check step) and study_stub (the skeleton, no
     # transcendental), interleaved; then each SPA kernel's MUFU floor: the
     # log tanh's MUFU instructions, two an edge and check step, at 16 a
     # clock an SM, at the SM clock the kernel held back to back
@@ -1530,14 +1705,25 @@ def main() -> int:
                                                        mode="precise"),
            **{n: functools.partial(cuda_study.study_decode, n, rx4, code,
                                    ITERATIONS)
-              for n in ("study_phi", "study_stub")}}
-    order = ("study_stub", "study_phi", "tile SPA", "tile SPA", "study_phi",
-             "study_stub")
+              for n in ("study_phi", "study_phi_libm", "study_stub")}}
+    order = ("study_stub", "study_phi_libm", "study_phi", "tile SPA",
+             "tile SPA", "study_phi", "study_phi_libm", "study_stub")
     spa_ms = [(n, time_decode(spa[n])) for n in order]
+    spa_mean = {}
     for n in spa:
         ms_n = [t for m, t in spa_ms if m == n]
+        spa_mean[n] = sum(ms_n) / 2
         log(f"[times] {n} {shape}, interleaved: {ms_n[0]:.4f} / "
             f"{ms_n[1]:.4f} ms [{card}]")
+    phi_ratio = spa_mean["study_phi"] / spa_mean["tile SPA"]
+    log(f"[times] study_phi / the shipped tile SPA {phi_ratio:.4f}, "
+        f"study_phi_libm / study_phi "
+        f"{spa_mean['study_phi_libm'] / spa_mean['study_phi']:.4f}, "
+        f"study_stub / study_phi "
+        f"{spa_mean['study_stub'] / spa_mean['study_phi']:.4f} [{card}]")
+    if not abs(phi_ratio - 1) <= STUDY_PHI_TIME:
+        raise AssertionError(f"study_phi takes {phi_ratio:.4f} x the shipped "
+                             f"tile SPA's time, beyond {STUDY_PHI_TIME}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_ms = {}
     for name, c, frames, rxt in (("bp_sumproduct", code, N_FRAMES, rx4),
@@ -1598,6 +1784,21 @@ def main() -> int:
             for n in cuda_study_ms.INSTANCES:
                 smem_ms[n] = wavefront_ms(minsum_wavefronts(
                     c, frames, ITERATIONS), sms, mhz)
+    # each SPA study instance's MUFU floor (sfu_ms): the MUFU instructions
+    # of its check step's functions (phase 2's probes) at the evaluations
+    # cuda_study.check_functions counts, at 16 a clock an SM, at the SM
+    # clock the study's instances hold run in turn back to back
+    _, samples = under_load(lambda: [cuda_study.study_decode(
+        n, rx4, code, ITERATIONS) for n in cuda_study.INSTANCES], 1.0)
+    study_mhz = float(np.median([smp[0] for smp in samples]))
+    for n in cuda_study.INSTANCES:
+        sfu_ms[n] = study_sfu_ms(study_mufu, cuda_study.check_functions(
+            n, code), N_FRAMES, ITERATIONS, sms, study_mhz)
+    log(f"[times] the SPA study's instances in turn back to back: clocks.sm "
+        f"{study_mhz:.0f} MHz (median of {len(samples)}); MUFU a function "
+        f"{study_mufu}; floors (ms) " + ", ".join(
+            f"{n} {sfu_ms[n]:.4f}" for n in cuda_study.INSTANCES)
+        + f" [{card}]")
     # the large-code kernels at the gen_256_512 sweep's shape (its steps'
     # decode: 131,072 frames, early exit), kernel only
     for method in kernels:
@@ -1668,8 +1869,12 @@ def main() -> int:
     # (ablate_pallas baseline; proto_r3b base and proto_r4b phi, study_phi)
     log(f"[study] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
+    # and against study_phi (the shipped tile SPA's fixed form), beside
+    # each instance's MUFU floor
+    phi_ms = next(r["ms"] for r in study_rows if r["instance"] == "study_phi")
     log(f"    {'script':11s} {'variant':13s} {'instance':21s} {'kernel ms':>9s} "
-        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs first':>8s} agree")
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs first':>8s} {'vs phi':>6s} "
+        f"{'sfu ms':>6s} agree")
     firsts = {}
     for row in study_rows:
         first = firsts.setdefault(row["tag"].replace("abl", "spa-precise"),
@@ -1677,25 +1882,27 @@ def main() -> int:
         agree = "-" if row["agree"] is None else f"{row['agree']:.5f}"
         log(f"    {row['tag']:11s} {row['variant']:13s} {row['instance']:21s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
-            f"{row['ms'] / first:8.3f} {agree}")
+            f"{row['ms'] / first:8.3f} {row['ms'] / phi_ms:6.3f} "
+            f"{sfu_ms[row['instance']]:6.4f} {agree}")
     for row in study_rows:    # each instance's time: its first variant's row
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the SPA aggregation-precision table, each row against study_phi (the
-    # tile SPA with the libm phi, proto_r2's sum-product yardstick);
-    # "shipped" is phase 3's agreement with the shipped precise SPA, "agree"
-    # the script's own reference's (fast_kernel_proto: the f32 path)
+    # shipped tile SPA's fixed form, proto_r2's sum-product yardstick),
+    # beside its MUFU floor; "shipped" is phase 3's agreement with the
+    # shipped precise SPA, "agree" the script's own reference's
+    # (fast_kernel_proto: the f32 path)
     phi_ms = next(r["ms"] for r in sp_rows if r["tag"] == "sp-ref")
     log(f"[study-sp] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
     log(f"    {'script':9s} {'variant':10s} {'instance':19s} {'kernel ms':>9s} "
-        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'shipped':>7s} "
-        f"agree")
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'sfu ms':>6s} "
+        f"{'shipped':>7s} agree")
     for row in sp_rows:
         shipped_agree = sp_agree[row["instance"]]
         log(f"    {row['tag']:9s} {row['variant']:10s} {row['instance']:19s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
-            f"{row['ms'] / phi_ms:6.3f} {shipped_agree:7.5f} "
-            f"{row['agree']:.5f}")
+            f"{row['ms'] / phi_ms:6.3f} {sfu_ms[row['instance']]:6.4f} "
+            f"{shipped_agree:7.5f} {row['agree']:.5f}")
     for row in sp_rows:
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the min-sum study's table, each row against study_ms_ref (the shipped
@@ -1720,11 +1927,14 @@ def main() -> int:
     log(f"[study-unroll] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
     log(f"    {'script':8s} {'variant':17s} {'instance':21s} {'kernel ms':>9s} "
-        f"{'plain ms':>9s} {'Gbit/s':>7s} agree")
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'sfu ms':>6s} agree")
     for row in unroll_rows:
+        sp = row["instance"] in cuda_study.INSTANCES   # else min-sum
         log(f"    {row['tag']:8s} {row['variant']:17s} {row['instance']:21s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
-            f"{row['agree']:.5f}")
+            + (f"{row['ms'] / phi_ms:6.3f} {sfu_ms[row['instance']]:6.4f} "
+               if sp else f"{'-':>6s} {'-':>6s} ")
+            + f"{row['agree']:.5f}")
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     log(f"[unroll] block_32_64 {shape}: unrolled vs unroll-1 sibling, "
         f"interleaved; SASS = static instructions, spills = ptxas store/load "

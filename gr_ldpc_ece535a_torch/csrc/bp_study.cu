@@ -1,6 +1,7 @@
 // The sum-product kernel study for Hopper (sm_90a): the check-step and
 // aggregation variants of the TPU prototype study, as compile-time instances
-// on the tile skeleton of csrc/bp_wmajor.cu.
+// of one template, each an ablation of the shipped tile SPA
+// (bp_wmajor.cu's bp_kernel<6, true, 32, 8>, fixed iterations).
 //
 // Replaces the Pallas kernels of:
 //   tools/ablate_pallas.py:27  make_sp_kernel(opts)  -> study_cm*
@@ -24,18 +25,30 @@
 // Why it exists. The shipped sum-product tile kernel (bp_wmajor.cu) is about
 // 70% of the forward step, and ncu does not run where the card is. These
 // instances take the kernel apart at compile time, so a stub removes the
-// work it stands for and no runtime branch is left in the loop:
-//   CHECK  kPhi         the shipped check step: two logf(tanhf) per edge
-//          kExplog      the same function as expf + two log1pf per evaluation
-//          kTanhprodWm  one tanhf, prefix x suffix products, one IEEE divide
-//                       and one logf per edge (proto_r4b's tanhprod)
+// work it stands for and no runtime branch is left in the loop. The
+// yardstick is the shipped kernel itself: study_phi is its fixed form, the
+// same check step (log_tanh_half of sfu.cuh, the header both sources
+// include), the same min.NaN clamp, launch bounds and rounding order, and
+// decides every frame as it does. Every transcendental of every other
+// instance but study_phi_libm is built on the same header's MUFU functions
+// (ex2_sfu, rcp_sfu, lg2_sfu), so a variant's time is measured against the
+// check step that ships, not against libm:
+//   CHECK  kPhi         the shipped check step: two log_tanh_half an edge
+//          kExplog      the same function as log1p(-e) - log1p(e), e = e^-x
+//                       (log_tanh_half_explog: ex2, two lg2)
+//          kTanhprodWm  tanh_half (ex2, rcp), prefix x suffix products, the
+//                       clip, log_ratio (rcp, lg2) an edge (proto_r4b's
+//                       tanhprod)
 //          kTanhprodCm  the same on the check-major layout with ablate_pallas's
 //                       L-form variable step and stubs (STUBS bits)
 //          kStub        E = 0.9 M: no transcendental at all ("nocheck")
 //          kPsprod      kTanhprodWm with the clip at +-(1 - 2^-23), so E stays
 //                       finite (proto_r2's psprod)
-//          kPsprod1p    the same clip, E = log1pf(T) - log1pf(-T): no divide
+//          kPsprod1p    the same clip, E = log1p_diff(T): two lg2, no divide
 //                       (proto_r3's psprod1p)
+//          kPhiLibm     kPhi with libm's logf(tanhf), the shipped check step
+//                       before it moved onto the MUFU (study_phi_libm; the
+//                       only instance that calls libm)
 //   AGG    kF32         each message once, f32 sum: the f32 reading of the
 //                       TPU's HIGHEST and HIGH products (and of its [hi; lo]
 //                       split, which kHilo computes as the TPU did)
@@ -71,34 +84,43 @@
 // Work layout as the tile kernel: a block of 32 lanes x 8 rows keeps 32 * FPT
 // frames; messages [slot][frame] in shared memory for all iterations; rx read
 // once, coalesced; only the int8 decisions written back. Lane f handles frames
-// f and f + 32, so both halves of a warp's accesses stay on 32 banks. What
-// bounds it is what the study measures: per edge and iteration the w-major
-// SPA does two logf(tanhf) pairs, 256 B in and 64 B out per frame per decode
-// (no HBM bound). Only row weight 6 (block_32_64, the code the prototypes
-// run) is instantiated; pad slots as in the tile kernel (never read in the
-// w-major form; t = 1 in, E * 0 out in the check-major form).
+// f and f + 32, so both halves of a warp's accesses stay on 32 banks. The
+// launch bounds are the tile kernel's (256 threads, no minimum of blocks),
+// so ptxas holds each instance to its own register budget as it holds the
+// tile SPA's. What bounds it is what the study measures: per edge and
+// iteration the w-major SPA evaluates log tanh(x/2) twice, six MUFU, 256 B in
+// and 64 B out per frame per decode (no HBM bound). Only row weight 6
+// (block_32_64, the code the prototypes run) is instantiated; pad slots as
+// in the tile kernel (never read in the w-major form; t = 1 in, E * 0 out in
+// the check-major form).
 //
-// Rounding: no fast math, --fmad=false; the row phi sum is pallas_bp._tree's
-// pairwise order; a variable's sums run from 0 in ascending slot order; the
-// exclusive products run from each end of the row, as _excl_prefix_prod and
-// _excl_suffix_prod. A product the TPU ran at precision DEFAULT rounds its
-// f32 operand to bf16 (__float2bfloat16_rn, nearest even) and sums in f32.
+// Rounding: no fast math, --fmad=false (the MUFU functions' contractions are
+// explicit __fmaf_rn); the row phi sum is pallas_bp._tree's pairwise order; a
+// variable's sums run from 0 in ascending slot order; the exclusive products
+// run from each end of the row, as _excl_prefix_prod and _excl_suffix_prod. A
+// product the TPU ran at precision DEFAULT rounds its f32 operand to bf16
+// (__float2bfloat16_rn, nearest even) and sums in f32. Each MUFU function
+// below has an IEEE-f32 mirror in ops/cuda_study.py (study_plain's phi
+// "mirror"), is held to float64 within its stated bar by bp_study_probe on
+// the card (chip_smoke.py's phi phase), and its mirror on the CPU
+// (tests/test_torch_study_sfu.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sfu.cuh"   // the shipped check step and its MUFU functions
 
 namespace {
 
 constexpr int kWr = 6;
 constexpr int kLanes = 32, kRows = 8, kThreads = kLanes * kRows;
 constexpr int kWcMax = 4;
-constexpr float kPhiClamp = 1e4f;        // pallas_bp._PHI_CLAMP
 // proto_r2's 0.9999999 and proto_r3's 0.999999881 are this one f32
 constexpr float kClip = 1.f - 1.f / (1 << 23);
 
 enum Check { kPhi, kExplog, kTanhprodWm, kTanhprodCm, kStub, kPsprod,
-             kPsprod1p };
+             kPsprod1p, kPhiLibm };
 enum Agg { kF32, kBf16, kNone, kSplit, kBf16All, kHilo, kHilo2,
            kTextbook };
 enum Stub { kNoTanh = 1, kNoExcl = 2, kNoLog = 4 };
@@ -129,23 +151,6 @@ __device__ __forceinline__ float final_round(float x) {
     return bf16(x);
 }
 
-// pallas_bp._tree: pairwise reduction with an odd element carried over.
-template <int W>
-struct Tree {
-  template <class Op>
-  static __device__ __forceinline__ void reduce(float* y, Op op) {
-    if constexpr (W > 1) {
-      constexpr int h = W / 2;
-#pragma unroll
-      for (int i = 0; i < h; ++i) y[i] = op(y[i], y[i + h]);
-      if constexpr (W % 2) y[h] = y[2 * h];
-      Tree<h + W % 2>::reduce(y, op);
-    }
-  }
-};
-
-struct Add { __device__ float operator()(float a, float b) const { return a + b; } };
-
 // T[k] = (t0 * ... * t[k-1]) * (t[W-1] * ... * t[k+1]), each product running
 // from its end of the row (a product with 1 first is exact).
 __device__ __forceinline__ void excl_products(const float* t, float* T) {
@@ -164,14 +169,70 @@ __device__ __forceinline__ void excl_products(const float* t, float* T) {
   }
 }
 
-__device__ __forceinline__ float log_tanh_half(float x) {   // log tanh(x/2)
+// The MUFU functions of the study's check steps beyond log_tanh_half. Each
+// states its bar against float64 on f32 inputs, |error| <= max(2^-16 |y|,
+// 2^-20), relative where |y| >= 1/16 and absolute below: log_tanh_half's.
+
+// log tanh(x/2) for x >= 0 as proto_r3b's explog writes it, log1p(-e) -
+// log1p(e) with e = e^-x: e = 2^(-x log2 e) and each log a log2 times ln 2.
+// Three MUFU (ex2, lg2, lg2). Below kPhiSmall 1 - e cancels, so log2(1 - e)
+// takes x itself less the series' next term, x log2(e) / 2 (the dropped
+// x^2/24 is under 2^-19 of the value there); above it ex2's error carried
+// through 1 - e stays under 2^-18 of the value, as in log_tanh_half. Results
+// above 0 are clamped to 0. log_tanh_half's special values: x = 0 gives
+// -inf, x = +inf and x above 87 give 0, NaN stays NaN; a subnormal x acts
+// as 0.
+__device__ __forceinline__ float log_tanh_half_explog(float x) {
+  const float e = ex2_sfu(x * -kLog2e);
+  const bool small = x < kPhiSmall;
+  const float a = lg2_sfu(small ? x : 1.f - e);
+  const float lm = small ? __fmaf_rn(x, -0.5f * kLog2e, a) : a;
+  return min_nan((lm - lg2_sfu(1.f + e)) * kLn2, 0.f);
+}
+
+// tanh(x/2) for any x: with e = 2^(-|x| log2 e) = e^-|x|, tanh(|x|/2) =
+// (1 - e) * (1 / (1 + e)), and the sign of x copied on. Two MUFU (ex2, rcp).
+// ex2's error carried through 1 - e is about 2^-22 absolute, so about 2^-19
+// relative at |y| = 1/16 and less above. |x| above about 17.3 gives +-1
+// (tanhf's f32 result from about 18), +-inf gives +-1, NaN stays NaN, a
+// subnormal x gives +-0.
+__device__ __forceinline__ float tanh_half(float x) {
+  const float e = ex2_sfu(fabsf(x) * -kLog2e);
+  return copysignf((1.f - e) * rcp_sfu(1.f + e), x);
+}
+
+// log((1 + T) / (1 - T)) for T in [-1, 1]: the divide as a reciprocal, the
+// log a log2 times ln 2. Two MUFU (rcp, lg2); lg2's absolute error and
+// rcp's one step carry to about 2^-21 absolute. T = 1 gives +inf, T = -1
+// -inf, NaN stays NaN, a subnormal T 0.
+__device__ __forceinline__ float log_ratio(float T) {
+  return lg2_sfu((1.f + T) * rcp_sfu(1.f - T)) * kLn2;
+}
+
+// log1p(T) - log1p(-T), the same function without a divide (psprod1p's
+// form): two MUFU (lg2, lg2), the same error and special values.
+__device__ __forceinline__ float log1p_diff(float T) {
+  return (lg2_sfu(1.f + T) - lg2_sfu(1.f - T)) * kLn2;
+}
+
+// libm's log tanh(x/2), study_phi_libm's: the shipped check step's function
+// before it moved onto the MUFU (45 instructions, two of them MUFU).
+__device__ __forceinline__ float log_tanh_half_libm(float x) {
   return logf(tanhf(x * 0.5f));
 }
 
-__device__ __forceinline__ float log_tanh_half_explog(float x) {
-  const float u = expf(-x);                  // proto_r3b._check_explog
-  return log1pf(-u) - log1pf(u);
-}
+// The log tanh(x/2) of a phi-domain check step.
+template <int CHECK>
+struct PhiFn {
+  __device__ __forceinline__ float operator()(float x) const {
+    if constexpr (CHECK == kExplog)
+      return log_tanh_half_explog(x);
+    else if constexpr (CHECK == kPhiLibm)
+      return log_tanh_half_libm(x);
+    else
+      return log_tanh_half(x);
+  }
+};
 
 // W-major check step for check m of frames f + 32q, in place: M -> E.
 template <int CHECK, int FPT>
@@ -198,7 +259,7 @@ __device__ __forceinline__ void check_wm(float* msg, const int* sv, int m,
     for (int k = 0; k < kWr; ++k)
 #pragma unroll
       for (int q = 0; q < FPT; ++q)
-        t[q][k] = real[k] ? tanhf(msg[(k * M + m) * F + f + q * kLanes] * 0.5f)
+        t[q][k] = real[k] ? tanh_half(msg[(k * M + m) * F + f + q * kLanes])
                           : 1.f;
 #pragma unroll
     for (int q = 0; q < FPT; ++q) excl_products(t[q], T[q]);
@@ -214,44 +275,15 @@ __device__ __forceinline__ void check_wm(float* msg, const int* sv, int m,
           float x = T[q][k];
           x = x < -c ? -c : (x > c ? c : x);
           msg[(k * M + m) * F + f + q * kLanes] =
-              CHECK == kPsprod1p ? log1pf(x) - log1pf(-x)
-                                 : logf((1.f + x) / (1.f - x));
+              CHECK == kPsprod1p ? log1p_diff(x) : log_ratio(x);
         }
   } else {
-    // phi domain (bp_wmajor.cu check_sumproduct); pads act as t = +1e30:
-    // w = 0, sign +1, so they are skipped
-    float w[FPT][kWr], u[FPT][kWr], sg[FPT][kWr], P[FPT];
+    // phi domain: the shipped kernel's own check step (sfu.cuh), its
+    // log tanh the variant's, once a frame
 #pragma unroll
-    for (int q = 0; q < FPT; ++q) P[q] = 1.f;
-#pragma unroll
-    for (int k = 0; k < kWr; ++k) {
-#pragma unroll
-      for (int q = 0; q < FPT; ++q) {
-        w[q][k] = 0.f;
-        sg[q][k] = 1.f;
-        if (real[k]) {
-          const float t = msg[(k * M + m) * F + f + q * kLanes];
-          sg[q][k] = t < 0.f ? -1.f : 1.f;
-          const float x = CHECK == kExplog ? log_tanh_half_explog(fabsf(t))
-                                           : log_tanh_half(fabsf(t));
-          w[q][k] = x < -kPhiClamp ? -kPhiClamp : x;   // keeps NaN
-        }
-        u[q][k] = w[q][k];
-        P[q] = P[q] * sg[q][k];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < FPT; ++q) Tree<kWr>::reduce(u[q], Add());
-#pragma unroll
-    for (int k = 0; k < kWr; ++k)
-#pragma unroll
-      for (int q = 0; q < FPT; ++q)
-        if (real[k]) {
-          const float v = w[q][k] - u[q][0];
-          const float x = CHECK == kExplog ? log_tanh_half_explog(v)
-                                           : log_tanh_half(v);
-          msg[(k * M + m) * F + f + q * kLanes] = (-P[q] * sg[q][k]) * x;
-        }
+    for (int q = 0; q < FPT; ++q)
+      check_sumproduct<kWr, F>(msg, sv, nullptr, m, M, f + q * kLanes, false,
+                               PhiFn<CHECK>());
   }
 }
 
@@ -270,7 +302,7 @@ __device__ __forceinline__ void check_cm(float* msg, const int* sv, int m,
     t[k] = 1.f;
     if (real[k]) {
       const float x = msg[e * F + f];
-      t[k] = (STUBS & kNoTanh) ? x * 0.4f : tanhf(x * 0.5f);
+      t[k] = (STUBS & kNoTanh) ? x * 0.4f : tanh_half(x);
     }
   }
   if constexpr ((STUBS & kNoExcl) != 0) {
@@ -282,8 +314,7 @@ __device__ __forceinline__ void check_cm(float* msg, const int* sv, int m,
 #pragma unroll
   for (int k = 0; k < kWr; ++k) {
     if (real[k] || AGG == kNone) {
-      const float g = (STUBS & kNoLog) ? T[k] * 1.9f
-                                       : logf((1.f + T[k]) / (1.f - T[k]));
+      const float g = (STUBS & kNoLog) ? T[k] * 1.9f : log_ratio(T[k]);
       msg[(m * kWr + k) * F + f] = real[k] ? g : g * 0.f;   // * cmask
     }
   }
@@ -547,12 +578,15 @@ struct Instance {
   int check, agg, fpt, stubs, unroll;
   Launcher launch;
   SmemFn smem;
+  const void* kernel;      // for the occupancy query
 };
 
 // The instantiated templates. ops/cuda_study.py names them and finds each by
 // its five arguments (bp_study_find); the enums' numbering is its CHECKS,
 // AGGS and STUB_BITS.
-#define STUDY(...) {__VA_ARGS__, launch<__VA_ARGS__>, smem_of<__VA_ARGS__>}
+#define STUDY(...)                                                            \
+  {__VA_ARGS__, launch<__VA_ARGS__>, smem_of<__VA_ARGS__>,                    \
+   (const void*)study_kernel<__VA_ARGS__>}
 const Instance kInstances[] = {
     STUDY(kPhi, kF32, 1, 0, 1),
     STUDY(kPhi, kF32, 2, 0, 1),
@@ -581,9 +615,44 @@ const Instance kInstances[] = {
     STUDY(kPhi, kTextbook, 1, 0, 4),
     STUDY(kPhi, kHilo2, 1, 0, 19),
     STUDY(kPhi, kBf16All, 1, 0, 19),
+    STUDY(kPhiLibm, kF32, 1, 0, 1),
 };
 #undef STUDY
 constexpr int kCount = sizeof(kInstances) / sizeof(kInstances[0]);
+
+// The check steps' functions alone, elementwise, for holding each against
+// float64 and for counting its instructions (its SASS between the load and
+// the store). The numbering is ops/cuda_study.py's PROBES.
+enum Probe { kProbePhi, kProbeExplog, kProbeTanhHalf, kProbeLogRatio,
+             kProbeLog1pDiff, kProbeLibm };
+
+template <int FN>
+__global__ void probe_kernel(const float* __restrict__ x,
+                             float* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = x[i];
+  if constexpr (FN == kProbePhi)
+    y[i] = log_tanh_half(v);
+  else if constexpr (FN == kProbeExplog)
+    y[i] = log_tanh_half_explog(v);
+  else if constexpr (FN == kProbeTanhHalf)
+    y[i] = tanh_half(v);
+  else if constexpr (FN == kProbeLogRatio)
+    y[i] = log_ratio(v);
+  else if constexpr (FN == kProbeLog1pDiff)
+    y[i] = log1p_diff(v);
+  else
+    y[i] = log_tanh_half_libm(v);
+}
+const void* const kProbes[] = {
+    (const void*)probe_kernel<kProbePhi>,
+    (const void*)probe_kernel<kProbeExplog>,
+    (const void*)probe_kernel<kProbeTanhHalf>,
+    (const void*)probe_kernel<kProbeLogRatio>,
+    (const void*)probe_kernel<kProbeLog1pDiff>,
+    (const void*)probe_kernel<kProbeLibm>};
+constexpr int kProbeCount = sizeof(kProbes) / sizeof(kProbes[0]);
 
 }  // namespace
 
@@ -619,6 +688,34 @@ int bp_study_decode(int instance, const float* rx, int8_t* out, int B,
     return cudaErrorInvalidValue;
   return kInstances[instance].launch(rx, out, B, slot_var, var_slots, M, N, Wc,
                                      steps, static_cast<cudaStream_t>(stream));
+}
+
+// y (n,) = the check-step function `fn` (Probe) of x, for device buffers x
+// and y on `stream`. Returns the launch's cudaError_t.
+int bp_study_probe(int fn, const float* x, float* y, int n, void* stream) {
+  if (n <= 0 || fn < 0 || fn >= kProbeCount) return cudaErrorInvalidValue;
+  void* args[] = {&x, &y, &n};
+  return cudaLaunchKernel(kProbes[fn], dim3((unsigned)((n + 255) / 256)),
+                          dim3(256), args, 0,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of study instance `instance` that fit one SM at `smem` bytes of
+// dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into *blocks. Returns the query's cudaError_t.
+int bp_study_occupancy(int instance, int smem, int* blocks) {
+  if (instance < 0 || instance >= kCount) return cudaErrorInvalidValue;
+  const void* fn = kInstances[instance].kernel;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads,
+                                                        smem);
+  // a query's error must not surface as the next launch's cudaGetLastError
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 const char* bp_study_error_string(int err) {

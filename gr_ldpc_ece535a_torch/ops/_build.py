@@ -2,9 +2,12 @@
 
 Each source under ``csrc/`` has a plain ``extern "C"`` interface and no
 PyTorch headers, so nvcc builds it in seconds; the sources build in
-parallel, one nvcc process each, into one library each. A library goes into
-the package's ``_build/`` directory (git-ignored), named by a hash of its
-source and the flags, and is built at first use only.
+parallel, one nvcc process each, into one library each. The headers of
+``csrc/`` (``*.cuh``: the SPA's MUFU functions, shared by the shipped
+kernels and the study) are found there by every build, a variant's too. A
+library goes into the package's ``_build/`` directory (git-ignored), named
+by a hash of its source, every header and the flags, and is built at first
+use only.
 """
 
 from __future__ import annotations
@@ -17,13 +20,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load_library",
-           "load_variant", "load_variants", "variant_path"]
+__all__ = ["BUILD_DIR", "SOURCES", "HEADERS", "NVCC_FLAGS", "build",
+           "load_library", "load_variant", "load_variants", "variant_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+CSRC = _PKG / "csrc"
+SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms",
                         "dsp_loops", "pfb_track")}
+# the headers every source may include, hashed into every library's name
+HEADERS = sorted(CSRC.glob("*.cuh"))
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: no multiply-add contraction, so every f32 product and sum
 # rounds as it does in the plain PyTorch versions. No --use_fast_math: the
@@ -44,16 +50,25 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def _digest(text: bytes) -> str:
+    """The name of a library built from ``text``: its hash with the flags'
+    and every header's."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCES[name].read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    for header in HEADERS:
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(text)
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(SOURCES[name].read_bytes())}.so"
 
 
 def _compile(src: Path, lib: Path) -> tuple[list[str], Path, subprocess.Popen]:
     """Start nvcc on ``src`` into a temporary file beside ``lib``."""
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
     return cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
 
@@ -100,9 +115,7 @@ def load_library(name: str = "bp_wmajor") -> ctypes.CDLL:
 def variant_path(name: str, text: str) -> Path:
     """Where load_variant builds the library of ``text``, a variant of
     ``csrc/<name>.cu``; its compiler log is beside it, suffix ".log"."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(text.encode())
-    return BUILD_DIR / "variants" / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / "variants" / f"lib{name}-{_digest(text.encode())}.so"
 
 
 def load_variants(name: str, texts) -> list[ctypes.CDLL]:
@@ -191,6 +204,11 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                f"{name}_find": [i] * (5 if name == "bp_study" else 4),
                f"{name}_smem_bytes": [i] * 4,
                f"{name}_error_string": [i]}
+        if name == "bp_study":
+            # fn (a Probe), x, y (n,) f32, n, stream
+            fns["bp_study_probe"] = [i, p, p, i, p]
+            # instance, smem bytes, int* blocks
+            fns["bp_study_occupancy"] = [i, i, p]
     else:
         fns = {"bp_exact_decode": [
                    i,           # sumproduct (1) or min-sum (0)

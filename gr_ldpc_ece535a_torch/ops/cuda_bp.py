@@ -315,7 +315,7 @@ def _log_tanh_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def log_tanh_half_mirror(x: torch.Tensor) -> torch.Tensor:
-    """The kernels' log tanh(x/2) (csrc/bp_wmajor.cu log_tanh_half), x >= 0,
+    """The kernels' log tanh(x/2) (csrc/sfu.cuh log_tanh_half), x >= 0,
     step for step in f32, with IEEE exp2, 1/x and log2 where the kernel uses
     the SFU's approximations: ln2 (log2(2 tanh(x/2)) - 1), 2 tanh(x/2) =
     (2 - 2e) (1 / (1 + e)) with e = 2^(-x log2 e); log2(x) itself below

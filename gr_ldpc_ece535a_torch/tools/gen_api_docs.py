@@ -26,6 +26,7 @@ MODULES = [
     "gr_ldpc_ece535a_torch.ops",
     "gr_ldpc_ece535a_torch.ops.cuda_bp",
     "gr_ldpc_ece535a_torch.ops.cuda_dsp",
+    "gr_ldpc_ece535a_torch.ops.cuda_study",
     "gr_ldpc_ece535a_torch.ops.dsp",
     "gr_ldpc_ece535a_torch.ops.oracle",
     "gr_ldpc_ece535a_torch.blocks",

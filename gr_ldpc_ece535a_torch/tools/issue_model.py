@@ -9,20 +9,28 @@ the SM clock it runs at, and the issue time the two imply.
          store, by pipe (PIPES). The shipped w-major SPA kernels' own
          log tanh(x/2), csrc/bp_wmajor.cu log_tanh_half on the SFU, is
          counted the same way in that library's bp_phi_probe kernel
-         (shipped_phi). The study library's kernels are counted over their
-         whole bodies (static counts).
-  clock  study_phi and study_stub timed by CUDA events (tools/_timing.py),
-         then each run back to back for a few seconds, timed by the host
-         clock, while nvidia-smi samples the SM clock and power draw.
-  model  study_phi's check step (the libm pair, the shipped tile kernel's
-         until its SFU check step) evaluates the pair twice an edge and
-         check step: at the study's shape (block_32_64, 131,072 frames x 20
-         check steps) that is 2 x edges x frames x 20 / 32 warp
+         (shipped_phi), and each function of the study's check steps in its
+         probe kernel of bp_study (study_probe_mix: the same log_tanh_half,
+         the study's other MUFU functions and libm's log tanh). The study
+         library's kernels are counted over their whole bodies (static
+         counts).
+  clock  study_phi_libm, study_phi and study_stub timed by CUDA events
+         (tools/_timing.py), then each run back to back for a few seconds,
+         timed by the host clock, while nvidia-smi samples the SM clock and
+         power draw.
+  model  study_phi_libm's check step (the libm pair, the shipped tile
+         kernel's until its SFU check step) evaluates the pair twice an edge
+         and check step: at the study's shape (block_32_64, 131,072 frames x
+         20 check steps) that is 2 x edges x frames x 20 / 32 warp
          executions. A pipe needs count / RATES[pipe] issue slots a warp
-         execution, spread over SMs x 4 schedulers at the clock study_phi
-         held. Printed beside the measured cost of the check step's
-         arithmetic, study_phi minus study_stub back to back; and the same
-         model for the SFU phi, the shipped kernel's check step now.
+         execution, spread over SMs x 4 schedulers at the clock
+         study_phi_libm held. Printed beside the measured cost of the check
+         step's arithmetic, study_phi_libm minus study_stub back to back;
+         and the same model for the SFU phi, the shipped kernel's check step
+         and study_phi's, beside study_phi minus study_stub. Each study
+         instance's MUFU floor (study_sfu_ms): its check step's functions'
+         MUFU instructions (cuda_study.check_functions) at 16 a clock an
+         SM.
 
 The exact sum-product kernel (csrc/bp_exact.cu) evaluates tanhf, an IEEE
 division and logf once a real edge and iteration, from libm, bit for bit
@@ -79,7 +87,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["PIPES", "RATES", "sass_dump", "sass_functions", "pair_region",
-           "by_pipe", "shipped_phi", "under_load", "probe_sass", "exact_mix",
+           "by_pipe", "shipped_phi", "study_probe_mix", "study_sfu_ms",
+           "under_load", "probe_sass", "exact_mix",
            "exact_floor_ms", "warp_executions", "issue_ms",
            "minsum_wavefronts", "exact_minsum_wavefronts", "wavefront_ms",
            "kernel_mix", "MEMORY_OPS", "sass_instructions", "loop_chain",
@@ -290,6 +299,25 @@ def shipped_phi(lib: Path) -> list[str]:
         sass_dump(lib)).items() if "phi_probe_kernel" in name))
 
 
+def study_probe_mix(lib: Path) -> dict[str, list[str]]:
+    """{function: opcodes} of each function of the study's check steps
+    (cuda_study.PROBES): the region between the load and the store of its
+    probe kernel, in the library built from csrc/bp_study.cu."""
+    from ..ops import cuda_study
+    return {fn: pair_region(ops) for name, ops in sass_functions(
+        sass_dump(lib)).items() if (fn := cuda_study.probe_of(name))}
+
+
+def study_sfu_ms(mufu: dict[str, int], evaluations: dict[str, int],
+                 frames: int, steps: int, sms: int, clock_mhz: float) -> float:
+    """Milliseconds the MUFU needs for a study decode: ``evaluations`` (a
+    frame and check step, cuda_study.check_functions) of each function,
+    ``mufu`` MUFU instructions each (study_probe_mix), ``frames`` x
+    ``steps`` check steps, at 16 results a clock an SM."""
+    per_step = sum(mufu[fn] * n for fn, n in evaluations.items())
+    return per_step * frames * steps / (16 * sms * clock_mhz * 1e3)
+
+
 def by_pipe(opcodes) -> dict[str, int]:
     """Instruction counts a pipe, with "issue" the total."""
     c = collections.Counter(PIPES.get(o, "other") for o in opcodes)
@@ -492,7 +520,7 @@ def main() -> dict:
 
     code, rx = study_inputs("cuda", frames)
     ms, loaded, clock = {}, {}, {}
-    for inst in ("study_phi", "study_stub"):
+    for inst in ("study_phi_libm", "study_phi", "study_stub"):
         fn = functools.partial(cuda_study.study_decode, inst, rx, code, steps)
         ms[inst] = time_decode(fn)
         loaded[inst], samples = under_load(fn)
@@ -507,19 +535,34 @@ def main() -> dict:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     execs = warp_executions(code, frames, steps)
-    model = issue_ms(pair_pipes, execs, sms, clock["study_phi"])
-    check_ms = loaded["study_phi"] - loaded["study_stub"]
+    model = issue_ms(pair_pipes, execs, sms, clock["study_phi_libm"])
+    check_ms = loaded["study_phi_libm"] - loaded["study_stub"]
     print(f"[model] {code.name} {frames} x {steps}: {execs:.4e} warp "
-          f"executions of the pair on {sms} SMs at {clock['study_phi']} MHz "
-          f"-> " + ", ".join(f"{p} {v:.4f} ms" for p, v in model.items()),
+          f"executions of the pair on {sms} SMs at "
+          f"{clock['study_phi_libm']} MHz -> "
+          + ", ".join(f"{p} {v:.4f} ms" for p, v in model.items()),
           flush=True)
-    print(f"[model] the check step's arithmetic, study_phi - study_stub back "
-          f"to back: {check_ms:.4f} ms = {check_ms / model['issue']:.3f} x "
-          f"the pairs' issue time [{card}]", flush=True)
+    print(f"[model] the check step's arithmetic, study_phi_libm - study_stub"
+          f" back to back: {check_ms:.4f} ms = "
+          f"{check_ms / model['issue']:.3f} x the pairs' issue time [{card}]",
+          flush=True)
     sfu_model = issue_ms(sfu_pipes, execs, sms, clock["study_phi"])
-    print(f"[model] the SFU phi at the same shape and clock -> "
-          + ", ".join(f"{p} {v:.4f} ms" for p, v in sfu_model.items())
-          + f" [{card}]", flush=True)
+    sfu_check = loaded["study_phi"] - loaded["study_stub"]
+    print(f"[model] the SFU phi at the same shape, at the clock study_phi "
+          f"held -> " + ", ".join(f"{p} {v:.4f} ms"
+                                  for p, v in sfu_model.items())
+          + f"; study_phi - study_stub back to back {sfu_check:.4f} ms = "
+          f"{sfu_check / sfu_model['xu']:.3f} x the MUFU time [{card}]",
+          flush=True)
+    study_fns = study_probe_mix(build()["bp_study"][0])
+    for fn, ops in study_fns.items():
+        print(f"[mix] {fn} (bp_study probe): {by_pipe(ops)}", flush=True)
+    mufu = {fn: ops.count("MUFU") for fn, ops in study_fns.items()}
+    for name in cuda_study.INSTANCES:
+        ev = cuda_study.check_functions(name, code)
+        print(f"[model] {name}: MUFU floor "
+              f"{study_sfu_ms(mufu, ev, frames, steps, sms, clock['study_phi']):.4f}"
+              f" ms at {clock['study_phi']} MHz ({ev})", flush=True)
 
     # the min-sum study: static mix, times, and the wavefront model
     from ..ops import cuda_study_ms

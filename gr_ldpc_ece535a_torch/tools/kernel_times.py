@@ -9,12 +9,16 @@ card.
 "run" imports gr_ldpc_ece535a_torch from DIR (default: the checkout that
 holds this file), builds its kernels there, and times each case of CASES
 by CUDA events (that checkout's ``tools/_timing.py::time_decode``, a median
-of 20 launches), with a digest of its decisions. Run it by path, so that
-DIR decides which package is imported: to compare two trees, unpack one of
-them (``git archive``) into a git-ignored directory and run parent,
-change, change, parent in one call. "table" prints each case's times side
-by side, the mean of each label, the ratio of the second label's mean to
-the first's, and whether their decisions agree on every frame.
+of 20 launches), with a digest of its decisions, and records the code of
+the shipped libraries (SHIPPED) as that checkout builds them: each
+kernel's ptxas line (registers, spills) and a digest of its SASS. Run it by
+path, so that DIR decides which package is imported: to compare two trees,
+unpack one of them (``git archive``) into a git-ignored directory and run
+parent, change, change, parent in one call. "table" prints each case's
+times side by side, the mean of each label, the ratio of the second
+label's mean to the first's, whether their decisions agree on every frame,
+and for each shipped library whether every run built each kernel to the
+same ptxas line and SASS.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -55,14 +60,71 @@ CASES = {
 }
 
 
+# the libraries whose kernels ship: "table" holds their code across runs
+SHIPPED = ("bp_wmajor", "bp_exact")
+# an anonymous namespace's mangled name carries a hash of its file's path
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+_ADDRESS = re.compile(r"/\*[0-9a-fx]+\*/")
+
+
+def ptxas_lines(log: str) -> dict[str, str]:
+    """nvcc's ``-Xptxas -v`` log -> {kernel: its spill and register lines,
+    joined}, the kernel's mangled name with any anonymous namespace's hash
+    taken out."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _ANON.sub("(anon)", line.split("'")[1])
+            out[name] = ""
+        elif name and ("Used" in line or "spill" in line):
+            out[name] = "; ".join(filter(None, (out[name], line.split(
+                ":", 1)[-1].strip())))
+    return out
+
+
+def sass_digests(text: str) -> dict[str, str]:
+    """``cuobjdump -sass`` output -> {function: a digest of its
+    instructions}, addresses and encodings left out and names as
+    ptxas_lines gives them."""
+    body = {}
+    cur = None
+    for line in text.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            cur = body.setdefault(_ANON.sub("(anon)", m[1]), [])
+        elif cur is not None and (ins := _ADDRESS.sub("", line).split(";")[0]
+                                  .strip()) and not ins.startswith(
+                                      ("/*", ".")):
+            cur.append(_ANON.sub("(anon)", " ".join(ins.split())))
+    return {f: hashlib.sha1("\n".join(b).encode()).hexdigest()
+            for f, b in body.items()}
+
+
+def shipped_code(build_mod) -> dict[str, dict[str, list[str]]]:
+    """{library: {kernel: [ptxas line, SASS digest]}} of SHIPPED as the
+    ``ops/_build.py`` module ``build_mod`` builds them (cuobjdump beside its
+    nvcc)."""
+    built = build_mod.build()
+    cuobjdump = Path(build_mod._nvcc()).with_name("cuobjdump")
+    out = {}
+    for name in SHIPPED:
+        lib, log = built[name]
+        sass = sass_digests(subprocess.run(
+            [str(cuobjdump), "-sass", str(lib)], capture_output=True,
+            text=True, check=True, timeout=300).stdout)
+        lines = ptxas_lines(log)
+        out[name] = {f: [lines.get(f, ""), d] for f, d in sorted(sass.items())}
+    return out
+
+
 def run(root: Path, out: Path, label: str) -> dict:
     """Time every case with the package of ``root``; write and return
-    {"label", "root", "card", "cases": {name: {"ms", "digest"}}}."""
+    {"label", "root", "card", "cases": {name: {"ms", "digest"}}, "code":
+    shipped_code}."""
     sys.path.insert(0, str(root))
     import torch
 
     from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
-    from gr_ldpc_ece535a_torch.ops import cuda_bp
+    from gr_ldpc_ece535a_torch.ops import _build, cuda_bp
     from gr_ldpc_ece535a_torch.parallel.sweep import draw_frames
     from gr_ldpc_ece535a_torch.tools._timing import make_inputs, time_decode
 
@@ -79,7 +141,8 @@ def run(root: Path, out: Path, label: str) -> dict:
                                             name="gen_256_512")}
     decoders = {"sumproduct": cuda_bp.cuda_decode_sumproduct,
                 "minsum": cuda_bp.cuda_decode_minsum}
-    result = {"label": label, "root": str(root), "card": card, "cases": {}}
+    result = {"label": label, "root": str(root), "card": card, "cases": {},
+              "code": shipped_code(_build)}
     for name, (method, mode, cname, frames, ebn0, ee, src,
                iters) in CASES.items():
         c = codes[cname]
@@ -106,7 +169,10 @@ def run(root: Path, out: Path, label: str) -> dict:
 def table(runs: list[dict]) -> str:
     """Each case's times in the order of ``runs``, each label's mean, the
     second label's mean over the first's, and "same" where every run's
-    decisions have one digest (else "DIFFER")."""
+    decisions have one digest (else "DIFFER"); then, where every run
+    recorded its code, one line a shipped library: "same" where every run
+    built each of its kernels to one ptxas line and SASS, else "DIFFER"
+    and the kernels that do."""
     labels = list(dict.fromkeys(r["label"] for r in runs))
     lines = [f"{'case':52s} " + " ".join(f"{r['label']:>9s}" for r in runs)
              + "  " + " ".join(f"{lab:>9s}" for lab in labels)
@@ -122,6 +188,14 @@ def table(runs: list[dict]) -> str:
         lines.append(f"{name:52s} " + " ".join(f"{m:9.4f}" for m in ms)
                      + "  " + " ".join(f"{mean[lab]:9.4f}" for lab in labels)
                      + ratio + f" {'same' if same else 'DIFFER'}")
+    if all("code" in r for r in runs):
+        for name, kernels in runs[0]["code"].items():
+            differ = sorted({f for r in runs for f in (
+                kernels.keys() | r["code"][name].keys())
+                if r["code"][name].get(f) != kernels.get(f)})
+            lines.append(f"{name}: ptxas and SASS of {len(kernels)} kernels, "
+                         + (f"DIFFER in {len(differ)}: {', '.join(differ)}"
+                            if differ else "same in every run"))
     return "\n".join(lines)
 
 

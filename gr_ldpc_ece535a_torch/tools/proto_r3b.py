@@ -3,12 +3,16 @@
 The counterpart of ``tools/proto_r3b.py``. Each variant is a compile-time
 instance of ``csrc/bp_study.cu`` (``ops/cuda_study.py``):
 
-  base      the tile kernel's arithmetic with libm's logf(tanhf) (phi
-            domain, f32 sums; the shipped kernel's phi runs on the SFU)
+  base      the shipped tile kernel's arithmetic (phi domain, f32 sums, its
+            log tanh on the special-function unit), study_phi
+  libm      base with libm's logf(tanhf), the shipped check step before it
+            moved onto the special-function unit (no JAX variant: the TPU
+            had one phi), study_phi_libm
   skew2     base with two independent frames a thread: on the TPU two
             interleaved half-tiles let the MXU and VPU overlap; here the
             second chain is instruction-level parallelism against latency
-  explog    phi as log1p(-e^-x) - log1p(e^-x)
+  explog    phi as log1p(-e^-x) - log1p(e^-x), its exp and logs on the
+            special-function unit too
   skewlog   explog with two frames a thread
 
 and the cost ablation of ``kernel_abl``:
@@ -34,7 +38,8 @@ from ..ops.cuda_study import study_decode, study_plain
 from ._timing import STUDY_FRAMES, cli, study_inputs, study_row
 
 VARIANTS = {"base": "study_phi", "skew2": "study_phi_x2",
-            "explog": "study_explog", "skewlog": "study_explog_x2"}
+            "explog": "study_explog", "skewlog": "study_explog_x2",
+            "libm": "study_phi_libm"}
 ABL_VARIANTS = {"full": "study_phi", "nocheck": "study_stub",
                 "nomm": "study_phi_noagg", "nosplit": "study_phi_bf16"}
 

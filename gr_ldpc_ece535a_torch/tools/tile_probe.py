@@ -90,16 +90,13 @@ ParamTables param_tables(const int* a, int na, const int* b, int nb) {
 }
 
 """
+# (csrc/sfu.cuh's check_sumproduct takes any table type already)
 CONSTANT = [
-    ("template <int WR, int F>\n__device__ __forceinline__ int "
-     "check_sumproduct(float* msg, const int* sv,",
-     _PARAM + "template <int WR, int F, class SV>\n__device__ "
-     "__forceinline__ int check_sumproduct(float* msg, SV sv,"),
     ("template <int WR, int F>\n__device__ __forceinline__ CheckRow<WR> "
      "load_check(const float* msg,\n                                        "
      "           const int* sv,",
-     "template <int WR, int F, class SV>\n__device__ __forceinline__ "
-     "CheckRow<WR> load_check(const float* msg, SV sv,"),
+     _PARAM + "template <int WR, int F, class SV>\n__device__ "
+     "__forceinline__ CheckRow<WR> load_check(const float* msg, SV sv,"),
     ("template <int F>\n__device__ __forceinline__ VarRow load_var(const "
      "float* msg, const float* r,\n                                         "
      "  const int* vs,",

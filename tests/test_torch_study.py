@@ -7,7 +7,10 @@ scripts take no ``interpret`` argument, so ``pl.pallas_call`` is patched to
 ``interpret=True`` for this module, with ``block_b=128``. The port's
 counterpart (``gr_ldpc_ece535a_torch/tools/``) runs its plain versions on
 CPU tensors; its kernels (``csrc/bp_study.cu``) run on the card, in
-``chip_smoke.py`` and in the ``gpu``-marked test at the end.
+``chip_smoke.py`` and in the ``gpu``-marked test at the end. The plain
+versions compute the prototypes' IEEE transcendentals; the kernels' run on
+the MUFU (``tests/test_torch_study_sfu.py`` holds those to float64 and
+to the plain versions).
 
 Contracts, per variant:
   identical   the real variants at 5 iterations, and the stubs at 2
@@ -149,6 +152,25 @@ def test_variant_matches_the_jax_prototype(jax_tools, script, fn, variant,
     else:   # nan_spread
         assert (want[~agree] == 0).all()
         assert (~agree).any(), "no NaN reached JAX's matmuls: test is stale"
+
+
+@pytest.mark.parametrize("iterations", [5, 20])
+def test_libm_form_matches_the_jax_base(jax_tools, iterations):
+    """study_phi_libm, the shipped check step before its MUFU form, keeps
+    the prototypes' IEEE log tanh: bit for bit proto_r3b's base in JAX, and
+    study_phi's plain version (which the shipped kernel's MUFU form is held
+    to by contract)."""
+    rx = _codewords(FRAMES, seed=200 + iterations)
+    want = _jax_run(jax_tools, "proto_r3b", "run", "base", rx, iterations)
+    got = _port_run("proto_r3b", "run", "libm", rx, iterations)
+    np.testing.assert_array_equal(got, want)
+    assert "study_phi_libm" in cuda_study.INSTANCES
+    assert proto_r3b.VARIANTS["libm"] == "study_phi_libm"
+    assert torch.equal(
+        cuda_study.study_plain("study_phi_libm", torch.from_numpy(rx), CODE,
+                               iterations),
+        cuda_study.study_plain("study_phi", torch.from_numpy(rx), CODE,
+                               iterations))
 
 
 def test_base_is_the_shipped_tile_kernels_arithmetic():
@@ -315,8 +337,21 @@ def test_study_kernels_match_plain_versions_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (chip_smoke.py runs the full check)")
     rx = torch.from_numpy(_codewords(4096, seed=7)).cuda()
+    big = torch.from_numpy(_codewords(1 << 17, seed=8)).cuda()
     for inst in cuda_study.INSTANCES:
         got = cuda_study.study_decode(inst, rx, CODE, 20)
         want = cuda_study.study_plain(inst, rx, CODE, 20)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), inst
+        if not cuda_study.uses_sfu(inst):
+            assert torch.equal(got, want), inst
+            continue
+        # a MUFU instance: its plain version on the kernels' algorithms on
+        # all but MIRROR_MAX_SHARE of 2^17 frames, and the shipped tile
+        # SPA's fixed contract against the IEEE one
+        off = (cuda_study.study_decode(inst, big, CODE, 20)
+               != cuda_study.study_plain(inst, big, CODE, 20, phi="mirror"))
+        assert off.any(1).sum() <= cuda_study.MIRROR_MAX_SHARE * (1 << 17), inst
+        agree = (got == want).all(1).float().mean()
+        assert agree >= 0.99, inst
+        assert abs(syndrome_ok(got, CODE.H).float().mean()
+                   - syndrome_ok(want, CODE.H).float().mean()) <= 0.01, inst

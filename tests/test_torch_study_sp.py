@@ -275,7 +275,7 @@ def test_f32_products_turn_the_variants_into_their_yardsticks():
 def test_each_new_instance_names_its_own_kernel():
     args = {n: cuda_study.template_args(cuda_study.INSTANCES[n]) for n in NEW}
     assert len(set(args.values())) == len(NEW)
-    assert len(cuda_study.INSTANCES) == 27
+    assert len(cuda_study.INSTANCES) == 28
     for name, (check, agg, fpt, stubs, unroll) in args.items():
         assert fpt == 1 and stubs == 0 and unroll == 1
         symbol = (f"_ZN12_GLOBAL__N_112study_kernelILi{check}ELi{agg}ELi{fpt}"
@@ -371,9 +371,23 @@ def test_new_study_kernels_match_plain_versions_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (chip_smoke.py runs the full check)")
     rx = torch.from_numpy(_codewords(4096, seed=7)[0]).cuda()
+    big = torch.from_numpy(_codewords(1 << 17, seed=8)[0]).cuda()
     for inst in NEW:
         for steps in (0, 1, 20):
             got = cuda_study.study_decode(inst, rx, CODE, steps)
+            if steps < 2:   # on the MUFU: the plain version on its algorithms
+                assert torch.equal(got, cuda_study.study_plain(
+                    inst, rx, CODE, steps, phi="mirror")), (inst, steps)
+                continue
+            # on all but MIRROR_MAX_SHARE of 2^17 frames, and the shipped
+            # tile SPA's fixed contract against the IEEE one
+            off = (cuda_study.study_decode(inst, big, CODE, steps)
+                   != cuda_study.study_plain(inst, big, CODE, steps,
+                                             phi="mirror"))
+            assert (off.any(1).sum()
+                    <= cuda_study.MIRROR_MAX_SHARE * (1 << 17)), inst
             want = cuda_study.study_plain(inst, rx, CODE, steps)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (inst, steps)
+            assert (got == want).all(1).float().mean() >= 0.99, inst
+            assert abs(_ok(got.cpu().numpy()).mean()
+                       - _ok(want.cpu().numpy()).mean()) <= 0.01, inst

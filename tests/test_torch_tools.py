@@ -1,8 +1,9 @@
 """The host side of the port's kernel tools, on the CPU.
 
-``tools/occupancy.py``, ``tools/exact_probe.py`` and ``tools/loop_probe.py``
-build variants of the kernel sources by substituting text; ``tools/kernel_times.py`` compares the
-kernels' times across checkouts; ``tools/issue_model.py`` counts the exact
+``tools/occupancy.py``, ``tools/exact_probe.py``, ``tools/tile_probe.py``
+and ``tools/loop_probe.py`` build variants of the kernel sources by
+substituting text; ``tools/kernel_times.py`` compares the kernels' times,
+decisions and code (ptxas lines, SASS) across checkouts; ``tools/issue_model.py`` counts the exact
 sum-product kernel's libm calls. Each times kernels or reads SASS on a
 card, so here: the substitutions still find their text in today's sources,
 the tables and models from given numbers, the occupancy query's argument
@@ -193,6 +194,99 @@ def test_kernel_times_table_reads_run_files(tmp_path, capsys):
                        str(tmp_path / "1.json")])
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 3 and out[2].split()[-2] == "0.7500"
+
+
+_PTXAS_SHIPPED = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0288d620_12_bp_wmajor_cu_08a6e8369bp_kernelILi6ELb1ELi32ELi8EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__0288d620_12_bp_wmajor_cu_08a6e8369bp_kernelILi6ELb1ELi32ELi8EEEvPKf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z4probePKf' for 'sm_90a'
+ptxas info    : Used 8 registers
+"""
+
+
+def _sass(anon, second):
+    return f"""
+        code for sm_90a
+        Function : _ZN45_GLOBAL__N__{anon}_12_bp_wmajor_cu_08a6e8369bp_kernelILi6ELb1ELi32ELi8EEEvPKf
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe20000000800 */
+        /*0010*/                   {second} ;                      /* 0x0000000000007919 */
+        /*0020*/                   BRA 0x20;                       /* 0x0000000000007919 */
+        ..........
+        Function : _Z4probePKf
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+"""
+
+
+def test_kernel_times_reads_the_shipped_code():
+    """Kernels are named alike across checkouts (an anonymous namespace's
+    path hash taken out), and their SASS digest reads the instructions
+    alone: addresses and encodings do not count, an instruction does."""
+    lines = kernel_times.ptxas_lines(_PTXAS_SHIPPED)
+    key = "_ZN(anon)9bp_kernelILi6ELb1ELi32ELi8EEEvPKf"
+    assert lines == {
+        key: "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+             "loads; Used 48 registers, used 1 barriers, 8 bytes cumulative "
+             "stack size",
+        "_Z4probePKf": "Used 8 registers"}
+    a = kernel_times.sass_digests(_sass("0288d620", "S2R R0, SR_TID.X"))
+    b = kernel_times.sass_digests(_sass("11111111", "S2R R0, SR_TID.X")
+                                  .replace("0x00000a00ff017b82", "0x1"))
+    c = kernel_times.sass_digests(_sass("0288d620", "S2R R0, SR_TID.Y"))
+    assert set(a) == {key, "_Z4probePKf"}
+    assert a == b and a[key] != c[key] and a["_Z4probePKf"] == c["_Z4probePKf"]
+
+
+def test_kernel_times_shipped_code_reads_each_library(tmp_path):
+    """shipped_code: each shipped library's kernels, their ptxas lines from
+    the build's log and their SASS digests from the cuobjdump beside nvcc."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    (bin_dir / "nvcc").write_text("")
+    sass = tmp_path / "sass.txt"
+    sass.write_text(_sass("0288d620", "S2R R0, SR_TID.X"))
+    tool = bin_dir / "cuobjdump"
+    tool.write_text(f"#!/bin/sh\ncat {sass}\n")
+    tool.chmod(0o755)
+
+    class FakeBuild:
+        @staticmethod
+        def build():
+            return {name: (tmp_path / f"lib{name}.so", _PTXAS_SHIPPED)
+                    for name in ("bp_wmajor", "bp_exact", "bp_study")}
+
+        @staticmethod
+        def _nvcc():
+            return str(bin_dir / "nvcc")
+
+    code = kernel_times.shipped_code(FakeBuild)
+    assert set(code) == set(kernel_times.SHIPPED) == {"bp_wmajor", "bp_exact"}
+    key = "_ZN(anon)9bp_kernelILi6ELb1ELi32ELi8EEEvPKf"
+    digests = kernel_times.sass_digests(sass.read_text())
+    for kernels in code.values():
+        assert kernels[key] == [kernel_times.ptxas_lines(_PTXAS_SHIPPED)[key],
+                                digests[key]]
+        assert kernels["_Z4probePKf"][0] == "Used 8 registers"
+
+
+def test_kernel_times_table_holds_the_code():
+    """A line a shipped library: "same" where every run built each kernel
+    alike, else the kernels that differ; none where a run lacks its code."""
+    code = {"bp_wmajor": {"k1": ["Used 48 registers", "a"],
+                          "k2": ["Used 40 registers", "b"]}}
+    runs = [_run("parent", (2.0, 4.0)), _run("change", (1.0, 4.0))]
+    for r in runs:
+        r["code"] = json.loads(json.dumps(code))
+    lines = kernel_times.table(runs).splitlines()
+    assert lines[3] == "bp_wmajor: ptxas and SASS of 2 kernels, same in every run"
+    runs[1]["code"]["bp_wmajor"]["k2"][1] = "c"
+    runs[1]["code"]["bp_wmajor"]["k3"] = ["", "d"]
+    assert kernel_times.table(runs).splitlines()[3].endswith("DIFFER in 2: k2, k3")
+    del runs[0]["code"]
+    assert len(kernel_times.table(runs).splitlines()) == 3
 
 
 def test_kernel_times_cases_cover_the_redesigned_kernels():
