@@ -25,8 +25,12 @@ Phases, each of which raises on a miss:
               the study's check steps (bp_study's probe kernels: on the
               MUFU, no call, its log_tanh_half the shipped one's SASS); every
               study instance's registers, spills and blocks an SM beside the
-              shipped tile SPA's, and every shipped SPA kernel's registers
-              and spills held to SHIPPED_SPA_PTXAS; how many blocks of
+              shipped tile SPA's, every min-sum study instance's beside the
+              shipped tile min-sum's, and every shipped SPA kernel's
+              registers and spills held to SHIPPED_SPA_PTXAS, every shipped
+              min-sum kernel's (the tile and large-code min-sum, which take
+              their check step from csrc/minsum.cuh, the header the min-sum
+              study shares) to SHIPPED_MS_PTXAS; how many blocks of
               each w-major tile and of the exact kernels an SM holds
               (occupancy); for block_32_64, sim_50_100 and gen_200_400, the
               instance the tile and exact kernels take (a register tier or
@@ -75,7 +79,8 @@ Phases, each of which raises on a miss:
               algorithms (0), and the SPA aggregation-precision instances'
               agreement with the shipped precise SPA (>= 99% for the bf16
               and hi/lo phi forms); every min-sum
-              study instance likewise, study_ms_ref against the shipped
+              study instance likewise, also at 2 and 19 steps and at an odd
+              B (4,097 and 31 frames), study_ms_ref against the shipped
               precise min-sum (0), and the bf16-aggregation instances'
               agreement with it (>= 99%); the ten instances of the loop-unroll
               study (proto_r3c, proto_r4) also at 0, 1, 2 and 5 steps and on
@@ -271,13 +276,18 @@ Phases, each of which raises on a miss:
               the whole forward and of each sweep point; the large-code
               kernels' early exit at the gen_256_512 sweep's shape; the tile
               SPA against study_phi (within STUDY_PHI_TIME of it),
-              study_phi_libm and study_stub, interleaved; each SPA kernel's
+              study_phi_libm and study_stub, interleaved; the tile min-sum
+              against study_ms_ref (within STUDY_MS_REF_TIME of it),
+              study_ms_stub_check and study_ms_stub_mm, interleaved; each
+              SPA kernel's
               MUFU floor (sfu_ms) at the SM clock it ran at, each SPA study
               instance's at the clock the study's instances hold in turn
               back to back, and the exact SPA's MUFU and issue floors of its
               tanhf, division and logf (tools/issue_model.py exact_mix); the
               studies' tables (every SPA row also as a ratio to study_phi,
-              beside its MUFU floor);
+              beside its MUFU floor; every min-sum row as a ratio to
+              study_ms_ref, beside its shared-memory floor, registers,
+              spills and blocks an SM);
               the unroll table: each unrolled instance timed against its
               unroll-1 sibling in one interleaved run, with its SASS count,
               registers and spills; the receive's wall by host clock
@@ -322,7 +332,9 @@ instructions of its tanhf, IEEE division and logf, once an edge and
 iteration, at 16 MUFU and 4 issues a clock an SM; each min-sum record
 carries smem_ms: its shared-memory wavefronts (tools/issue_model.py
 minsum_wavefronts, exact_minsum_wavefronts; a register tier reads no table
-and no -rx) at one a clock an SM, at the SM clock the kernel holds.
+and no -rx) at one a clock an SM, at the SM clock the kernel holds, and so
+does every min-sum study instance's (the shipped tile min-sum's two frames
+a thread at the instance's own message bytes, cuda_study_ms.message_bytes).
 The loop kernels' records carry their times on 2^21 samples (path_ms),
 their public function's call beside the kernel (call_ms, path_call_ms) and
 the launches on each path that drives them; the serial ones
@@ -356,6 +368,7 @@ FIXED_MAX_SUCC_GAP = 0.01      # fixed iterations: syndrome-success share gap
 FER_MAX = {"sumproduct": 0.03, "minsum": 0.005}   # payload frames, 5 dB
 EXACT_MIN_AGREE = 0.999        # exact kernel vs the f32 path: frame agreement
 STUDY_PHI_TIME = 0.02          # study_phi vs the shipped tile SPA, interleaved
+STUDY_MS_REF_TIME = 0.02       # study_ms_ref vs the shipped tile min-sum, too
 # the shipped SPA kernels (their check step from csrc/sfu.cuh, the header
 # the study shares): ptxas's registers and spill store/load bytes a row
 # weight, as the parent of that header built them with CUDA 12.8's nvcc
@@ -366,6 +379,17 @@ SHIPPED_SPA_PTXAS = {
              2: (40, (0, 0))},
     "large": {8: (53, (0, 0)), 7: (54, (0, 0)), 6: (56, (0, 0)),
               5: (54, (0, 0)), 4: (54, (0, 0)), 3: (56, (0, 0)),
+              2: (56, (0, 0))}}
+# the shipped min-sum kernels (their check step from csrc/minsum.cuh, the
+# header the min-sum study shares): the tile min-sum bp_minsum_pairs<WR>
+# and the large-code bp_kernel<WR, false, 16, 64>, as the parent of that
+# header built them with CUDA 12.8's nvcc for sm_90a (phase 2 holds them)
+SHIPPED_MS_PTXAS = {
+    "pairs": {8: (64, (0, 0)), 7: (75, (0, 0)), 6: (64, (0, 0)),
+              5: (60, (0, 0)), 4: (48, (0, 0)), 3: (45, (0, 0)),
+              2: (45, (0, 0))},
+    "large": {8: (62, (0, 0)), 7: (62, (0, 0)), 6: (56, (0, 0)),
+              5: (52, (0, 0)), 4: (54, (0, 0)), 3: (56, (0, 0)),
               2: (56, (0, 0))}}
 LARGE_FRAMES = 16384
 SWEEP_REF = "results/waterfall_sim_50_100_4dec_1e6.json"
@@ -589,6 +613,17 @@ def main() -> int:
                              f"moved: {shipped_ptxas}")
     log(f"[build] the shipped SPA kernels' registers and spills as recorded "
         f"(SHIPPED_SPA_PTXAS, {len(shipped_ptxas)} kernels)")
+    ms_kernel = {"pairs": "bp_minsum_pairs<WR={}>",
+                 "large": "bp_kernel<WR={}, minsum, large>"}
+    shipped_ms = {(tile, wr): (regs.get(k := ms_kernel[tile].format(wr)),
+                               spills.get(k))
+                  for tile, by_wr in SHIPPED_MS_PTXAS.items() for wr in by_wr}
+    if shipped_ms != {(tile, wr): v for tile, by_wr in SHIPPED_MS_PTXAS.items()
+                      for wr, v in by_wr.items()}:
+        raise AssertionError(f"the shipped min-sum kernels' registers and "
+                             f"spills moved: {shipped_ms}")
+    log(f"[build] the shipped min-sum kernels' registers and spills as "
+        f"recorded (SHIPPED_MS_PTXAS, {len(shipped_ms)} kernels)")
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
     slib = cuda_study._study_lib()    # checks its instance table
     mlib = cuda_study_ms._study_ms_lib()
@@ -725,6 +760,18 @@ def main() -> int:
     for n in cuda_study.INSTANCES:
         log(f"    {n:22s} {regs.get(n, -1):3d} {str(spills.get(n)):9s} "
             f"{cuda_study.occupancy(c, n)}")
+    # and every min-sum study instance's beside the shipped tile min-sum's
+    # (study_ms_ref is its fixed form, two frames a thread)
+    tile_ms = "bp_minsum_pairs<WR=6>"
+    ms_blocks = {n: cuda_study_ms.occupancy(c, n)
+                 for n in cuda_study_ms.INSTANCES}
+    log(f"[build] min-sum study instances at {c.name} (registers, spill "
+        f"store/load bytes, blocks an SM): the shipped tile min-sum "
+        f"{regs.get(tile_ms, -1)}, {spills.get(tile_ms)}, "
+        f"{cuda_bp.occupancy(c, 'tile', False)[0]}")
+    for n in cuda_study_ms.INSTANCES:
+        log(f"    {n:22s} {regs.get(n, -1):3d} {str(spills.get(n)):9s} "
+            f"{ms_blocks[n]}")
     for c in [get_code(n) for n in ("block_32_64", "sim_5_10", "sim_8_16",
                                     "sim_24_48", "sim_50_100")] + list(gen.values()):
         t, x = wmajor_tables(c), check_major_tables(c)
@@ -1248,6 +1295,25 @@ def main() -> int:
             raise AssertionError(f"{name}: agreement {ms_agree[name]} with "
                                  f"the shipped precise min-sum")
     del shipped, vk, vp
+    # every min-sum instance on its two-frame skeleton at few steps (the
+    # trailing check step alone, one and 18 full steps before it), on the
+    # saturating rx, and at an odd B (4,097 frames: a last block of one
+    # frame, whose thread's second frame lies past B; 31: one block)
+    # against its plain version: 0 mismatching frames
+    rxo = codewords(code, 4097, PARITY_EBN0_DB, 9)
+    for name in cuda_study_ms.INSTANCES:
+        for tag, rx, steps in (("iterations 0", rxi, 0),
+                               ("iterations 1", rxi, 1),
+                               ("iterations 2", rxi, 2),
+                               ("iterations 19", rxi, 19),
+                               ("saturating rx (+-30)", sat, ITERATIONS),
+                               ("4097 frames", rxo, ITERATIONS),
+                               ("31 frames", rxo[:31], 5)):
+            compare(f"{name} vs plain {tag}",
+                    cuda_study_ms.study_ms_decode(name, rx, code, steps),
+                    cuda_study_ms.study_ms_plain(name, rx, code, steps), code,
+                    False, identical=True)
+    del rxo
     # the loop-unroll study: the new instances at few steps (the unrolled
     # blocks and the remainder) and on the saturating rx against their plain
     # versions, and each unrolled instance against its unroll-1 sibling: an
@@ -1695,6 +1761,19 @@ def main() -> int:
                 log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
                     f"{ITERATIONS}: kernel {ms:.4f} ms "
                     f"({N_FRAMES * c.K / (ms / 1e3):.4e} info bit/s) [{card}]")
+    def interleaved(fns):
+        """Each of fns timed twice, in the order last to first, then
+        first to last, each time logged; {name: the mean of the two}."""
+        order = list(fns)[::-1] + list(fns)
+        runs = [(n, time_decode(fns[n])) for n in order]
+        mean = {}
+        for n in fns:
+            ms_n = [t for m, t in runs if m == n]
+            mean[n] = sum(ms_n) / 2
+            log(f"[times] {n} {shape}, interleaved: {ms_n[0]:.4f} / "
+                f"{ms_n[1]:.4f} ms [{card}]")
+        return mean
+
     # the tile SPA against study_phi (its fixed form, which must time within
     # STUDY_PHI_TIME of it), study_phi_libm (the same with the libm phi it
     # had before its SFU check step) and study_stub (the skeleton, no
@@ -1706,15 +1785,7 @@ def main() -> int:
            **{n: functools.partial(cuda_study.study_decode, n, rx4, code,
                                    ITERATIONS)
               for n in ("study_phi", "study_phi_libm", "study_stub")}}
-    order = ("study_stub", "study_phi_libm", "study_phi", "tile SPA",
-             "tile SPA", "study_phi", "study_phi_libm", "study_stub")
-    spa_ms = [(n, time_decode(spa[n])) for n in order]
-    spa_mean = {}
-    for n in spa:
-        ms_n = [t for m, t in spa_ms if m == n]
-        spa_mean[n] = sum(ms_n) / 2
-        log(f"[times] {n} {shape}, interleaved: {ms_n[0]:.4f} / "
-            f"{ms_n[1]:.4f} ms [{card}]")
+    spa_mean = interleaved(spa)
     phi_ratio = spa_mean["study_phi"] / spa_mean["tile SPA"]
     log(f"[times] study_phi / the shipped tile SPA {phi_ratio:.4f}, "
         f"study_phi_libm / study_phi "
@@ -1724,6 +1795,28 @@ def main() -> int:
     if not abs(phi_ratio - 1) <= STUDY_PHI_TIME:
         raise AssertionError(f"study_phi takes {phi_ratio:.4f} x the shipped "
                              f"tile SPA's time, beyond {STUDY_PHI_TIME}")
+    # the tile min-sum against study_ms_ref (its fixed form, which must
+    # time within STUDY_MS_REF_TIME of it), study_ms_stub_check (no check
+    # step: Lr = Lq / 2) and study_ms_stub_mm (no aggregation: Lq = Lci +
+    # the slot's own Lr), interleaved as the SPA's
+    msk = {"tile min-sum": lambda: kernels["minsum"](rx4, code, ITERATIONS,
+                                                     mode="precise"),
+           **{n: functools.partial(cuda_study_ms.study_ms_decode, n, rx4,
+                                   code, ITERATIONS)
+              for n in ("study_ms_ref", "study_ms_stub_check",
+                        "study_ms_stub_mm")}}
+    msk_mean = interleaved(msk)
+    ref_ratio = msk_mean["study_ms_ref"] / msk_mean["tile min-sum"]
+    log(f"[times] study_ms_ref / the shipped tile min-sum {ref_ratio:.4f}, "
+        f"study_ms_stub_check / study_ms_ref "
+        f"{msk_mean['study_ms_stub_check'] / msk_mean['study_ms_ref']:.4f}, "
+        f"study_ms_stub_mm / study_ms_ref "
+        f"{msk_mean['study_ms_stub_mm'] / msk_mean['study_ms_ref']:.4f} "
+        f"[{card}]")
+    if not abs(ref_ratio - 1) <= STUDY_MS_REF_TIME:
+        raise AssertionError(f"study_ms_ref takes {ref_ratio:.4f} x the "
+                             f"shipped tile min-sum's time, beyond "
+                             f"{STUDY_MS_REF_TIME}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sfu_ms = {}
     for name, c, frames, rxt in (("bp_sumproduct", code, N_FRAMES, rx4),
@@ -1758,7 +1851,8 @@ def main() -> int:
     # (tools/issue_model.py: minsum_wavefronts, exact_minsum_wavefronts;
     # none for the slot tables and -rx of a register tier) at one a clock
     # an SM, at the SM clock the kernel holds back to back; the study's
-    # min-sum instances read their tables as the table route does
+    # min-sum instances on the shipped tile min-sum's skeleton (two frames
+    # a thread) at their own message bytes
     smem_ms = {}
     for name, tile, c, frames, rxt in (
             ("bp_minsum", "tile", code, N_FRAMES, rx4),
@@ -1782,8 +1876,9 @@ def main() -> int:
             f"{smem_ms[name]:.4f} ms [{card}]")
         if tile == "tile":
             for n in cuda_study_ms.INSTANCES:
+                msg_b, q_b = cuda_study_ms.message_bytes(n)
                 smem_ms[n] = wavefront_ms(minsum_wavefronts(
-                    c, frames, ITERATIONS), sms, mhz)
+                    c, frames, ITERATIONS, "pairs", msg_b, q_b), sms, mhz)
     # each SPA study instance's MUFU floor (sfu_ms): the MUFU instructions
     # of its check step's functions (phase 2's probes) at the evaluations
     # cuda_study.check_functions counts, at 16 a clock an SM, at the SM
@@ -1906,19 +2001,23 @@ def main() -> int:
     for row in sp_rows:
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the min-sum study's table, each row against study_ms_ref (the shipped
-    # tile min-sum's arithmetic); "shipped" is phase 3's agreement with the
-    # shipped precise min-sum, "agree" the script's own reference's
+    # tile min-sum's fixed form), beside its shared-memory floor (smem ms),
+    # registers, spill store/load bytes and blocks an SM (phase 2);
+    # "shipped" is phase 3's agreement with the shipped precise min-sum,
+    # "agree" the script's own reference's
     ref_ms = next(r["ms"] for r in ms_rows if r["instance"] == "study_ms_ref")
     log(f"[study-ms] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
     log(f"    {'script':9s} {'variant':10s} {'instance':19s} {'kernel ms':>9s} "
-        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs ref':>6s} {'shipped':>7s} "
-        f"agree")
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs ref':>6s} {'smem ms':>7s} "
+        f"{'regs':>4s} {'spills':9s} {'blocks':>6s} {'shipped':>7s} agree")
     for row in ms_rows:
-        log(f"    {row['tag']:9s} {row['variant']:10s} {row['instance']:19s} "
+        n = row["instance"]
+        log(f"    {row['tag']:9s} {row['variant']:10s} {n:19s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
-            f"{row['ms'] / ref_ms:6.3f} {ms_agree[row['instance']]:7.5f} "
-            f"{row['agree']:.5f}")
+            f"{row['ms'] / ref_ms:6.3f} {smem_ms[n]:7.4f} "
+            f"{regs.get(n, -1):4d} {str(spills.get(n)):9s} "
+            f"{ms_blocks[n]:6d} {ms_agree[n]:7.5f} {row['agree']:.5f}")
     for row in ms_rows:
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     # the loop-unroll study's rows, then the unroll table: each unrolled
@@ -1926,15 +2025,18 @@ def main() -> int:
     # (sibling, unrolled, unrolled, sibling; each a median of 20)
     log(f"[study-unroll] block_32_64 {shape}, CUDA events, median of 20 "
         f"(plain: of 5) [{card}]")
+    # each row against its study's yardstick (study_phi, study_ms_ref) and
+    # beside its floor: the MUFU's (sfu_ms) or shared memory's (smem_ms)
     log(f"    {'script':8s} {'variant':17s} {'instance':21s} {'kernel ms':>9s} "
-        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs phi':>6s} {'sfu ms':>6s} agree")
+        f"{'plain ms':>9s} {'Gbit/s':>7s} {'vs yard':>7s} {'floor ms':>8s} "
+        f"agree")
     for row in unroll_rows:
         sp = row["instance"] in cuda_study.INSTANCES   # else min-sum
+        yard, floor = (phi_ms, sfu_ms) if sp else (ref_ms, smem_ms)
         log(f"    {row['tag']:8s} {row['variant']:17s} {row['instance']:21s} "
             f"{row['ms']:9.4f} {row['plain_ms']:9.4f} {row['gbit_s']:7.3f} "
-            + (f"{row['ms'] / phi_ms:6.3f} {sfu_ms[row['instance']]:6.4f} "
-               if sp else f"{'-':>6s} {'-':>6s} ")
-            + f"{row['agree']:.5f}")
+            f"{row['ms'] / yard:7.3f} {floor[row['instance']]:8.4f} "
+            f"{row['agree']:.5f}")
         times.setdefault(row["instance"], (row["ms"], row["plain_ms"]))
     log(f"[unroll] block_32_64 {shape}: unrolled vs unroll-1 sibling, "
         f"interleaved; SASS = static instructions, spills = ptxas store/load "

@@ -52,8 +52,10 @@
 // precise contracts against their IEEE plain versions, but for a few frames
 // on the large codes at 1-2 dB that the same algorithm in IEEE f32 decides
 // as the kernel does (ops/cuda_bp.py).
-// Min-sum does only compares; its load-compute-store skeleton bounds it,
-// and the latency of its shared-memory loads: a table read heads each
+// Min-sum does only compares (its check step, minsum_row, is in
+// csrc/minsum.cuh, which the min-sum kernel study shares); its
+// load-compute-store skeleton bounds it, and the latency of its
+// shared-memory loads: a table read heads each
 // chain (table -> address -> message), and a warp reads one slot table
 // entry for 32 frames. The tile min-sum therefore takes two frames a
 // thread (bp_minsum_pairs): each message a float2, so one table read,
@@ -107,7 +109,8 @@
 #include <float.h>
 #include <stdint.h>
 
-#include "sfu.cuh"   // the SPA check step, its log_tanh_half on the MUFU
+#include "minsum.cuh"   // the min-sum check step, minsum_row
+#include "sfu.cuh"      // the SPA check step, its log_tanh_half on the MUFU
 
 namespace {
 
@@ -120,23 +123,7 @@ constexpr int kWcMax = 4;                // largest column weight taken
 constexpr int kWrMin = 2, kWrMax = 8;    // row weights instantiated
 constexpr float kPadBig = 1e30f;         // pallas_bp._BIG on pad slots
 
-// NaN-propagating min, as jnp.minimum / torch.minimum (fminf drops NaN)
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-// The messages of check m, the variables of its slots and the check's
-// parity over the decisions vh, loaded apart from the arithmetic (the
-// parity's loads beside the messages', where the min-sum step's latency
-// hides them; unused, as in the fixed form, they are not issued). Pad
-// slots: t = +1e30 (never the minimum of a real row), j = -1.
-template <int WR>
-struct CheckRow {
-  float t[WR];
-  int j[WR];
-  int par;
-};
-
+// The messages of check m (CheckRow, csrc/minsum.cuh).
 template <int WR, int F>
 __device__ __forceinline__ CheckRow<WR> load_check(const float* msg,
                                                    const int* sv,
@@ -152,47 +139,6 @@ __device__ __forceinline__ CheckRow<WR> load_check(const float* msg,
     row.par ^= row.j[k] >= 0 ? vh[row.j[k] * (F + 1) + f] : 0;
   }
   return row;
-}
-
-// Min-sum check step on a loaded row: Lq -> Lr, each result k handed to
-// out(k, Lr[k]) as it is formed.
-//   Lr = sign * (prod_alpha * min over the other slots of |Lq|), where
-//   prod_alpha is the row sign product, or 0 when the row holds a zero.
-template <int WR, class Out>
-__device__ __forceinline__ void minsum_row(const CheckRow<WR>& row,
-                                           float norm_offset, float norm_scale,
-                                           int use_offset, int use_scale,
-                                           Out out) {
-  float beta[WR], sg[WR], pre[WR];
-  float P = 1.f;
-#pragma unroll
-  for (int k = 0; k < WR; ++k) {
-    const float t = row.t[k];
-    beta[k] = fabsf(t);
-    sg[k] = t < 0.f ? -1.f : 1.f;
-    P = P * sg[k];
-  }
-  // exclusive prefix/suffix minima (pallas_bp._excl_min_axis0)
-  float acc = beta[0];
-  pre[0] = FLT_MAX;
-#pragma unroll
-  for (int k = 1; k < WR; ++k) {
-    pre[k] = acc;
-    acc = nan_min(acc, beta[k]);
-  }
-  const float prod_alpha = acc == 0.f ? 0.f : P;   // acc: min over the row
-  float suf = FLT_MAX;
-#pragma unroll
-  for (int k = WR - 1; k >= 0; --k) {
-    float me = nan_min(pre[k], suf);
-    suf = k == WR - 1 ? beta[k] : nan_min(suf, beta[k]);
-    if (use_offset) {
-      me = me - norm_offset;
-      me = me < 0.f ? 0.f : me;
-    }
-    if (use_scale) me = me * norm_scale;
-    out(k, sg[k] * (prod_alpha * me));
-  }
 }
 
 // Min-sum check step on a loaded row, in place: Lq -> Lr (minsum_row).

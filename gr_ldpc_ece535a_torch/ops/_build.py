@@ -3,11 +3,11 @@
 Each source under ``csrc/`` has a plain ``extern "C"`` interface and no
 PyTorch headers, so nvcc builds it in seconds; the sources build in
 parallel, one nvcc process each, into one library each. The headers of
-``csrc/`` (``*.cuh``: the SPA's MUFU functions, shared by the shipped
-kernels and the study) are found there by every build, a variant's too. A
-library goes into the package's ``_build/`` directory (git-ignored), named
-by a hash of its source, every header and the flags, and is built at first
-use only.
+``csrc/`` (``*.cuh``: the SPA's MUFU functions and check step, and the
+min-sum's check step, each shared by the shipped kernels and a study) are
+found there by every build, a variant's too. A library goes into the
+package's ``_build/`` directory (git-ignored), named by a hash of its
+source, every header and the flags, and is built at first use only.
 """
 
 from __future__ import annotations
@@ -203,12 +203,12 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                # check, var, rnd, unroll
                f"{name}_find": [i] * (5 if name == "bp_study" else 4),
                f"{name}_smem_bytes": [i] * 4,
+               # instance, smem bytes, int* blocks
+               f"{name}_occupancy": [i, i, p],
                f"{name}_error_string": [i]}
         if name == "bp_study":
             # fn (a Probe), x, y (n,) f32, n, stream
             fns["bp_study_probe"] = [i, p, p, i, p]
-            # instance, smem bytes, int* blocks
-            fns["bp_study_occupancy"] = [i, i, p]
     else:
         fns = {"bp_exact_decode": [
                    i,           # sumproduct (1) or min-sum (0)

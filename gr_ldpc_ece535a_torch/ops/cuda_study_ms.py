@@ -51,7 +51,10 @@ DEFAULT, its f32 operand was rounded to bf16 and the sum taken in f32):
 Every instance runs ``steps`` check steps with a variable update between
 them and decides LQ = Lci + (sum of all edges' Lr, rounded as the
 aggregation) < 0 (Lci < 0 after no step). ``block_b`` (512-4096 frames) was a
-TPU VMEM tile; each instance here has one tile, 32 frames a block.
+TPU VMEM tile; each instance here has one tile, 32 frames a block of 16 x
+16 threads, two frames a thread (the shipped tile min-sum's skeleton; each
+message pair one float2, one __nv_bfloat162 for gram16, and int8's q pair
+two bytes: ``message_bytes``).
 
 The plain versions round in the kernels' order, on rx's device;
 ``exact`` drops the rounding of the TPU's products where JAX on the CPU
@@ -64,6 +67,7 @@ path falls back from one to the other. Each launch adds one to
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import re
@@ -81,7 +85,7 @@ from .layout import PAD_BIG, wmajor_tables
 __all__ = ["StudyMsSpec", "INSTANCES", "LAUNCHES", "STUDY_WR",
            "study_ms_decode", "study_ms_plain", "study_ms_supported",
            "study_ms_smem_bytes", "template_args", "kernel_index",
-           "instance_of"]
+           "instance_of", "message_bytes", "occupancy"]
 
 STUDY_WR = 6                   # the one row weight bp_study_ms.cu instantiates
 LANES = 32                     # frames a block
@@ -162,12 +166,24 @@ def study_ms_smem_bytes(code: LdpcCode, instance: str) -> int:
             + extra.get(spec.var, 0))
 
 
+def message_bytes(instance: str) -> tuple[int, int]:
+    """(bytes of a message, bytes of a message where the variable step
+    reads it) in the instance's shared memory: gram16's messages are bf16,
+    int8's check step hands the variable step one int8 q a message (its
+    last check step writes the f32 message), every other instance's are
+    f32."""
+    var = _spec(instance).var
+    return {"gram16": (2, 2), "int8": (4, 1)}.get(var, (4, 4))
+
+
 def study_ms_supported(code: LdpcCode, instance: str) -> bool:
     """Whether the instance takes this code: row weight 6, column weight
-    <= 4, and its tile in a block's shared memory."""
+    <= 4, and its tile in a block's shared memory; int8 also an even N
+    (its q pairs' two-byte alignment)."""
     t = wmajor_tables(code)
     return (t.Wr == STUDY_WR and t.Wc <= WC_MAX
-            and study_ms_smem_bytes(code, instance) <= SMEM_MAX)
+            and study_ms_smem_bytes(code, instance) <= SMEM_MAX
+            and (_spec(instance).var != "int8" or t.N % 2 == 0))
 
 
 def _check_study(instance: str, rx, code: LdpcCode, steps: int) -> None:
@@ -180,7 +196,8 @@ def _check_study(instance: str, rx, code: LdpcCode, steps: int) -> None:
             f"instantiated for row weight {STUDY_WR} (block_32_64), column "
             f"weight <= {WC_MAX}, and {instance} needs "
             f"{study_ms_smem_bytes(code, instance)} of at most {SMEM_MAX} "
-            f"bytes")
+            f"bytes" + (", and an even N" if INSTANCES[instance].var == "int8"
+                        else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +352,23 @@ def _study_ms_lib():
 def kernel_index(instance: str) -> int:
     """The library's index of an instance (bp_study_ms_find)."""
     return _study_ms_lib().bp_study_ms_find(*template_args(_spec(instance)))
+
+
+def occupancy(code: LdpcCode, instance: str) -> int:
+    """Blocks of the instance's kernel that one SM holds at this code's
+    shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+    current device)."""
+    if not study_ms_supported(code, instance):
+        raise ValueError(f"{instance} does not take code {code.name!r}")
+    blocks = ctypes.c_int(0)
+    lib = _study_ms_lib()
+    err = lib.bp_study_ms_occupancy(kernel_index(instance),
+                                    study_ms_smem_bytes(code, instance),
+                                    ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"occupancy query failed: "
+                           f"{lib.bp_study_ms_error_string(err).decode()}")
+    return blocks.value
 
 
 def _launch(instance: str, rx: torch.Tensor, code: LdpcCode,

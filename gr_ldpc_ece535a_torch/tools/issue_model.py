@@ -44,15 +44,16 @@ records the floor of the three libm calls alone).
 The min-sum tile kernel has no transcendental, so its model counts
 shared-memory wavefronts instead (minsum_wavefronts): every message, table,
 -rx and decision access of the w-major tile min-sum (bp_study_ms.cu's
-study_ms_ref), one 128-byte wavefront a warp access (the layouts are
-conflict-free; a table entry is one address for the warp), at one wavefront
-a clock an SM. Printed beside study_ms_ref's and its stubs' times and the
-study_ms kernels' static mix with their LDS/STS/BAR counts; then the
-shipped tile and exact min-sum kernels' static mix (kernel_mix; the
-exact kernel's table route and register tier), and the wavefronts of each
-(the tile with one and with two frames a thread; exact_minsum_wavefronts
-for the check-major kernel, whose register tier reads no table and no
--rx).
+study_ms_ref, two frames a thread as the shipped kernel), in 128-byte
+wavefronts (the layouts are conflict-free; a table entry is one address
+for the warp; message_share: a warp's bf16 or int8 pairs of two slots share
+one), at one wavefront a clock an SM. Printed beside study_ms_ref's and its
+stubs' times and the study_ms kernels' static mix with their LDS/STS/BAR
+counts; then the shipped tile and exact min-sum kernels' static mix
+(kernel_mix; the exact kernel's table route and register tier), and the
+wavefronts of each (the tile with one and with two frames a thread, f32,
+bf16 and int8's q; exact_minsum_wavefronts for the check-major kernel,
+whose register tier reads no table and no -rx).
 
 The streaming blocks' loop kernels (csrc/dsp_loops.cu) are one serial
 recurrence a sample, so their floor is a latency, not a rate: ``loop_chain``
@@ -369,26 +370,49 @@ def warp_executions(code, frames: int, steps: int) -> float:
 # both rows)
 WAVEFRONT_SHARES = {"tile": (1.0, 1.0), "pairs": (0.5, 1.0),
                     "large": (0.5, 0.5)}
+# frames a thread, by kernel: a warp's message access moves 32 times this
+# many messages
+FRAMES_A_THREAD = {"tile": 1, "pairs": 2, "large": 1}
 
 
-def minsum_wavefronts(code, frames: int, steps: int,
-                      kernel: str = "tile") -> float:
+def message_share(kernel: str, nbytes: int) -> float:
+    """Wavefronts a message access costs for 32 frames of one slot, at
+    ``nbytes`` a message: a warp moves 32 x FRAMES_A_THREAD[kernel]
+    messages in one access, as many 128-byte wavefronts as those bytes
+    fill, at least one. So one frame a thread takes a wavefront for 32
+    frames whatever a message's bytes (32 bf16 messages are 64 B, and still
+    a wavefront), while two frames a thread share one wavefront between a
+    warp's two rows (two slots) where their messages are at most 2 bytes:
+    the bf16 and int8 pairs."""
+    fpt = FRAMES_A_THREAD[kernel]
+    return max(1, -(-32 * fpt * nbytes // 128)) / fpt
+
+
+def minsum_wavefronts(code, frames: int, steps: int, kernel: str = "tile",
+                      msg_bytes: int = 4, q_bytes: int | None = None) -> float:
     """Shared-memory wavefronts of the w-major min-sum: a check step reads
     E table entries and the edges' messages and writes them back; a
     variable step reads N -rx, N*Wc table entries and the edges' messages
     and writes them; the decision reads as a variable step does and writes
     N decisions. ``steps`` check steps, one variable step fewer, one
-    decision. A message access is one 128-byte wavefront for 32 frames of
-    one slot (the layouts are conflict-free); a table entry or -rx read
-    costs WAVEFRONT_SHARES[kernel] of one a warp row."""
+    decision. A message access costs message_share(kernel, bytes) of a
+    wavefront for 32 frames of one slot (the layouts are conflict-free), at
+    ``msg_bytes`` a message (4 for f32, 2 for bf16); ``q_bytes`` (int8's
+    q: 1), where given, the bytes of what a check step but the last writes
+    and a variable step reads instead. A table entry or -rx read costs
+    WAVEFRONT_SHARES[kernel] of one a warp row."""
     H = code.H
     E, N = int(H.sum(1).max()) * code.M, code.N
     Wc, edges = int(H.sum(0).max()), int(H.sum())
     table, rx = WAVEFRONT_SHARES[kernel]
-    check = E * table + 2 * edges
-    var = N * rx + N * Wc * table + 2 * edges
-    decide = N * rx + N * Wc * table + edges + N
-    per_warp = steps * check + max(steps - 1, 0) * var + decide
+    msg = message_share(kernel, msg_bytes)
+    q = message_share(kernel, msg_bytes if q_bytes is None else q_bytes)
+    check = E * table + edges * (msg + q)      # a check step but the last
+    last = E * table + 2 * edges * msg
+    var = N * rx + N * Wc * table + edges * (q + msg)
+    decide = N * rx + N * Wc * table + edges * msg + N
+    per_warp = (max(steps - 1, 0) * (check + var) + (last if steps else 0)
+                + decide)
     return per_warp * frames / 32
 
 
@@ -587,7 +611,7 @@ def main() -> dict:
               f"median {clock[inst]} MHz, power.draw "
               f"{min(s[2] for s in samples)}-{max(s[2] for s in samples)} W",
               flush=True)
-    waves = minsum_wavefronts(code, frames, steps)
+    waves = minsum_wavefronts(code, frames, steps, "pairs")
     wave_ms = waves / (sms * clock["study_ms_ref"] * 1e3)
     print(f"[model] min-sum {code.name} {frames} x {steps}: {waves:.4e} "
           f"shared-memory wavefronts on {sms} SMs at {clock['study_ms_ref']} "
@@ -602,9 +626,13 @@ def main() -> dict:
         fns = sass_functions(sass_dump(build()[lib][0]))
         print(f"[mix] {lib} {tag} (static, whole kernel): "
               f"{kernel_mix(fns, tag)}", flush=True)
-    for name, w in (("tile, one frame a thread", waves),
-                    ("tile, two frames a thread",
-                     minsum_wavefronts(code, frames, steps, "pairs")),
+    for name, w in (("tile, one frame a thread",
+                     minsum_wavefronts(code, frames, steps)),
+                    ("tile, two frames a thread", waves),
+                    ("tile, two frames a thread, bf16 messages",
+                     minsum_wavefronts(code, frames, steps, "pairs", 2)),
+                    ("tile, two frames a thread, int8's q",
+                     minsum_wavefronts(code, frames, steps, "pairs", 4, 1)),
                     ("exact, table route",
                      exact_minsum_wavefronts(code, frames, steps)),
                     ("exact, registers",

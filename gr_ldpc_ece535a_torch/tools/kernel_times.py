@@ -1,4 +1,5 @@
-"""The shipped BP kernels' times at the shapes PERF.md reports, for one
+"""The shipped BP kernels' times at the shapes PERF.md reports, and the
+min-sum kernel study's instances at block_32_64 131,072 x 20, for one
 checkout of the repository, and a table comparing checkouts; "run" needs a
 card.
 
@@ -35,7 +36,8 @@ ITERATIONS = 20
 SWEEP_DB = (1.0, 1.5, 2.0)         # chip_smoke.py's gen_256_512 sweep
 # name -> (cuda_decode_* method, mode, code, frames, Eb/N0 dB, early exit,
 # rx source, iterations); the rx source is a make_inputs seed, or ("sweep",
-# p) for run_waterfall's draw_frames at grid point p
+# p) for run_waterfall's draw_frames at grid point p. Method "study_ms":
+# ops/cuda_study_ms.study_ms_decode of the instance named by mode
 CASES = {
     **{f"bp_{m} {form} block_32_64 131072": (m, "precise", "block_32_64",
                                              1 << 17, 4.0, form == "early_exit",
@@ -57,6 +59,14 @@ CASES = {
         m, "precise", "gen_256_512", 1 << 17, e, True,
         ("sweep", SWEEP_DB.index(e)), ITERATIONS)
        for m in ("sumproduct", "minsum") for e in SWEEP_DB},
+    **{f"{n} block_32_64 131072": ("study_ms", n, "block_32_64", 1 << 17,
+                                   4.0, False, 1000, ITERATIONS)
+       for n in ("study_ms_ref", "study_ms_argmin", "study_ms_current",
+                 "study_ms_stub_check", "study_ms_stub_mm", "study_ms_bits",
+                 "study_ms_bf16", "study_ms_int8", "study_ms_split",
+                 "study_ms_hilo", "study_ms_current_u2",
+                 "study_ms_current_u4", "study_ms_current_u19",
+                 "study_ms_hilo2", "study_ms_hilo2_u19")},
 }
 
 
@@ -124,7 +134,7 @@ def run(root: Path, out: Path, label: str) -> dict:
     import torch
 
     from gr_ldpc_ece535a_torch.codes import LdpcCode, get_code, make_ldpc
-    from gr_ldpc_ece535a_torch.ops import _build, cuda_bp
+    from gr_ldpc_ece535a_torch.ops import _build, cuda_bp, cuda_study_ms
     from gr_ldpc_ece535a_torch.parallel.sweep import draw_frames
     from gr_ldpc_ece535a_torch.tools._timing import make_inputs, time_decode
 
@@ -153,6 +163,8 @@ def run(root: Path, out: Path, label: str) -> dict:
                              .manual_seed(src), dev, ebn0)
 
         def fn(rx=rx, c=c, method=method, mode=mode, ee=ee, iters=iters):
+            if method == "study_ms":
+                return cuda_study_ms.study_ms_decode(mode, rx, c, iters)
             return decoders[method](rx, c, iters, mode=mode, early_exit=ee)
 
         v = fn().cpu().numpy()

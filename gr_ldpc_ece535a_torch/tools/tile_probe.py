@@ -23,6 +23,10 @@ and at gen_200_400 (16,384 x 20, 4 dB, near the tile's size gate):
   constant       lever 1(b): the slot tables in the constant bank (a
                  __grid_constant__ kernel parameter) in place of shared
                  memory
+  no live        the selects that keep a frame's old messages where it
+                 does not decode (done, or past B) dropped: such a frame
+                 gets its new messages all the same, and its decision,
+                 written only while it decodes, stays; every output holds
 
 so that the check step's arithmetic is the shipped time less the
 skeleton's, and its loads and stores the skeleton's less the variable
@@ -137,6 +141,10 @@ VARIANTS = {
     "min blocks 5": [(_BOUNDS, _BOUNDS[:-1] + ", 5)")],
     "min blocks 6": [(_BOUNDS, _BOUNDS[:-1] + ", 6)")],
     "constant": CONSTANT,
+    "no live": [("make_float2(live[0] ? va[k] : a.t[k], live[1] ? vb[k] : "
+                 "b.t[k]);", "make_float2(va[k], vb[k]);"),
+                ("live[0] ? ra + aa : ea[k], live[1] ? rb + ab : eb[k]);",
+                 "ra + aa, rb + ab);")],
 }
 TIMING_ONLY = ("skeleton", "variable step")
 FRAMES, ITERATIONS, EBN0_DB = 1 << 17, 20, 4.0
