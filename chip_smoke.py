@@ -371,26 +371,26 @@ STUDY_PHI_TIME = 0.02          # study_phi vs the shipped tile SPA, interleaved
 STUDY_MS_REF_TIME = 0.02       # study_ms_ref vs the shipped tile min-sum, too
 # the shipped SPA kernels (their check step from csrc/sfu.cuh, the header
 # the study shares): ptxas's registers and spill store/load bytes a row
-# weight, as the parent of that header built them with CUDA 12.8's nvcc
-# for sm_90a (phase 2 holds them)
+# weight, as CUDA 12.8's nvcc builds them for sm_90a with the pass counts
+# taken at the kernels' ends (phase 2 holds them)
 SHIPPED_SPA_PTXAS = {
-    "tile": {8: (60, (0, 0)), 7: (48, (20, 20)), 6: (48, (4, 4)),
-             5: (47, (0, 0)), 4: (44, (0, 0)), 3: (44, (0, 0)),
+    "tile": {8: (48, (28, 28)), 7: (57, (0, 0)), 6: (48, (4, 4)),
+             5: (48, (0, 0)), 4: (48, (0, 0)), 3: (44, (0, 0)),
              2: (40, (0, 0))},
-    "large": {8: (53, (0, 0)), 7: (54, (0, 0)), 6: (56, (0, 0)),
+    "large": {8: (52, (0, 0)), 7: (54, (0, 0)), 6: (56, (0, 0)),
               5: (54, (0, 0)), 4: (54, (0, 0)), 3: (56, (0, 0)),
-              2: (56, (0, 0))}}
+              2: (54, (0, 0))}}
 # the shipped min-sum kernels (their check step from csrc/minsum.cuh, the
 # header the min-sum study shares): the tile min-sum bp_minsum_pairs<WR>
-# and the large-code bp_kernel<WR, false, 16, 64>, as the parent of that
-# header built them with CUDA 12.8's nvcc for sm_90a (phase 2 holds them)
+# and the large-code bp_kernel<WR, false, 16, 64>, as CUDA 12.8's nvcc
+# builds them for sm_90a (phase 2 holds them)
 SHIPPED_MS_PTXAS = {
-    "pairs": {8: (64, (0, 0)), 7: (75, (0, 0)), 6: (64, (0, 0)),
-              5: (60, (0, 0)), 4: (48, (0, 0)), 3: (45, (0, 0)),
-              2: (45, (0, 0))},
-    "large": {8: (62, (0, 0)), 7: (62, (0, 0)), 6: (56, (0, 0)),
+    "pairs": {8: (64, (0, 0)), 7: (80, (0, 0)), 6: (64, (0, 0)),
+              5: (59, (0, 0)), 4: (51, (0, 0)), 3: (44, (0, 0)),
+              2: (44, (0, 0))},
+    "large": {8: (64, (0, 0)), 7: (64, (0, 0)), 6: (56, (0, 0)),
               5: (52, (0, 0)), 4: (54, (0, 0)), 3: (56, (0, 0)),
-              2: (56, (0, 0))}}
+              2: (55, (0, 0))}}
 LARGE_FRAMES = 16384
 SWEEP_REF = "results/waterfall_sim_50_100_4dec_1e6.json"
 SWEEP_FRAMES = 1_000_000

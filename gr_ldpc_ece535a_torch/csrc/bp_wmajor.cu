@@ -100,6 +100,18 @@
 // SPA to 48 registers with a spill, 4 B at WR = 6 and 20 B at WR = 7, where
 // the libm form spilled none.
 //
+// Lane use under early exit. A block runs until its slowest frame stops; a
+// frame that stopped earlier leaves its threads idle for the rest. Where a
+// launch is given `passes` (while a profiler records), each block adds, with
+// one atomic each at its end, the passes it ran times its frames into
+// passes[0] and the passes its frames ran while live, summed, into passes[1]
+// (frames past B count none). Nothing is counted in the loops: the block's
+// passes are the loop's index where it stops, and a frame's the pass its
+// stop store records (the tile forms' done flag holds the pass; the
+// large-code form writes it into the frame's first r, which a stopped frame
+// no longer reads), read once the loops end. So one instance serves the
+// traced and untraced launches alike, with one null test at its end.
+//
 // Rounding order, shared with the plain versions: the check-row phi sum is
 // the pairwise tree of pallas_bp._tree (Wr = 6: ((x0+x3)+(x1+x4))+(x2+x5));
 // a variable's sums add its edges in ascending slot order starting from 0,
@@ -213,6 +225,21 @@ __device__ __forceinline__ void var_step(float* msg, int8_t* vh,
   }
 }
 
+// Adds a block's passes into passes[0] (blk, the passes the block ran,
+// times its F frames) and passes[1] (its frames' passes, summed). Called by
+// the 32 threads of warp 0, lane l giving n, the passes of its frames (0 for
+// a lane whose frames another lane gives).
+template <int F>
+__device__ __forceinline__ void add_passes(unsigned long long* passes, int l,
+                                           int n, int blk) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  if (l == 0) {
+    atomicAdd(passes, (unsigned long long)blk * F);
+    atomicAdd(passes + 1, (unsigned long long)n);
+  }
+}
+
 template <int F>
 __host__ __device__ inline int smem_bytes(int M, int N, int Wr, int Wc) {
   const int E = Wr * M;
@@ -222,12 +249,14 @@ __host__ __device__ inline int smem_bytes(int M, int N, int Wr, int Wc) {
 // The large-code block fills an SM's shared memory, so it runs one block per
 // SM; saying so (min blocks 1) lets ptxas use the registers that frees and
 // removes the min-sum WR=5 spill. The tile kernel keeps ptxas's default.
+// passes: where not null, add the block's passes (see "Lane use" above).
 template <int WR, bool SP, int F, int R>
 __global__ void __launch_bounds__(F * R, F == kLargeFrames ? 1 : 0)
 bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
           const int* __restrict__ slot_var, const int* __restrict__ var_slots,
           int M, int N, int Wc, int iterations, int early_exit,
-          float norm_offset, float norm_scale, int use_offset, int use_scale) {
+          float norm_offset, float norm_scale, int use_offset, int use_scale,
+          unsigned long long* __restrict__ passes) {
   constexpr int kThreads = F * R;
   constexpr int kRStride = F + 1;         // row stride of r and vh
   extern __shared__ __align__(16) unsigned char smem[];
@@ -290,6 +319,7 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
   };
 
   bool live = f0 + f < B;
+  int blk = iterations;   // the passes the block runs
   if (!early_exit) {
     // iterations-1 full steps, then a trailing check step and the decision
     for (int it = 0; it + 1 < iterations; ++it) {
@@ -319,23 +349,33 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
     // no thread reads or writes it. The block stops when all its frames
     // have, one check step after the last one satisfied H: where blocks stop
     // early (the tile at 4 dB) that step costs more than the barriers save.
-    for (int it = 0; it < iterations; ++it) {
+    // A frame that stops at iteration it ran it passes; its row-0 r, which
+    // it no longer reads, keeps that count.
+    int it = 0;
+    for (; it < iterations; ++it) {
       const bool syn = it > 0;
       const int odd = live ? checks(syn) : 0;
       if (odd) flags[(it & 1) * F + f] = 1;
       if (__syncthreads_and(!live || (syn && !odd))) break;
-      if (live && syn && !flags[(it & 1) * F + f]) live = false;
+      if (live && syn && !flags[(it & 1) * F + f]) {
+        live = false;
+        if (y == 0) r[f] = __int_as_float(it);
+      }
       if (y == 0) flags[((it + 1) & 1) * F + f] = 0;
       if (live) vars(true, true);
       __syncthreads();
     }
+    blk = it;
   } else {
     // each iteration: check step, tentative decision, syndrome over all M
     // checks; a frame that satisfies H keeps that decision and stops. The
     // block stops when all its frames have.
+    // done[f]: 0 while frame f runs, then the passes it ran (1 from the
+    // start for a frame past B)
     int* unsat = flags;
     int* done = flags + F;
-    for (int it = 0; it < iterations; ++it) {
+    int it = 0;
+    for (; it < iterations; ++it) {
       if (__syncthreads_and(done[f])) break;
       live = !done[f];
       if (y == 0) unsat[f] = 0;
@@ -355,8 +395,21 @@ bp_kernel(const float* __restrict__ rx, int8_t* __restrict__ out, int B,
         }
       }
       __syncthreads();
-      if (y == 0 && live && !unsat[f]) done[f] = 1;
+      if (y == 0 && live && !unsat[f]) done[f] = it + 1;
     }
+    blk = it;
+  }
+  if (passes != nullptr && tid < 32) {   // warp 0: rows 0 (and 1) of lanes
+    int ran = 0;                         // frame f's passes
+    if (y == 0 && f0 + f < B) {
+      if (!early_exit)
+        ran = iterations;
+      else if constexpr (F == kLargeFrames)
+        ran = live ? blk : __float_as_int(r[f]);
+      else
+        ran = flags[F + f] ? flags[F + f] : blk;
+    }
+    add_passes<F>(passes, tid, ran, blk);
   }
   __syncthreads();
   for (int i = tid; i < F * N; i += kThreads) {   // coalesced out rows
@@ -382,7 +435,8 @@ bp_minsum_pairs(const float* __restrict__ rx, int8_t* __restrict__ out,
                 int B, const int* __restrict__ slot_var,
                 const int* __restrict__ var_slots, int M, int N, int Wc,
                 int iterations, int early_exit, float norm_offset,
-                float norm_scale, int use_offset, int use_scale) {
+                float norm_scale, int use_offset, int use_scale,
+                unsigned long long* __restrict__ passes) {
   constexpr int F = kTileFrames, R = kPairRows, L = F / 2;
   constexpr int kThreads = L * R, kRStride = F + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -502,6 +556,7 @@ bp_minsum_pairs(const float* __restrict__ rx, int8_t* __restrict__ out,
     for (int j = y; j < N; j += R) var(live, write_msgs, write_vh, j);
   };
 
+  int blk = iterations;   // the passes the block runs
   if (!early_exit) {
     // iterations-1 full steps, then a trailing check step and the decision
     const bool live[2] = {f0 + f2 < B, f0 + f2 + 1 < B};
@@ -523,9 +578,12 @@ bp_minsum_pairs(const float* __restrict__ rx, int8_t* __restrict__ out,
     // each iteration: check step, tentative decision, syndrome over all M
     // checks; a frame that satisfies H keeps that decision and stops. The
     // block stops when all its frames have.
+    // done[f]: 0 while frame f runs, then the passes it ran (1 from the
+    // start for a frame past B)
     int* unsat = flags;
     int* done = flags + F;
-    for (int it = 0; it < iterations; ++it) {
+    int it = 0;
+    for (; it < iterations; ++it) {
       if (__syncthreads_and(done[f2] && done[f2 + 1])) break;
       const bool live[2] = {!done[f2], !done[f2 + 1]};
       if (y == 0) unsat[f2] = unsat[f2 + 1] = 0;
@@ -550,9 +608,22 @@ bp_minsum_pairs(const float* __restrict__ rx, int8_t* __restrict__ out,
       if (y == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          if (live[h] && !unsat[f2 + h]) done[f2 + h] = 1;
+          if (live[h] && !unsat[f2 + h]) done[f2 + h] = it + 1;
       }
     }
+    blk = it;
+  }
+  if (passes != nullptr && tid < 32) {   // warp 0: rows 0 and 1 of lanes
+    int ran = 0;                         // frames f2's and f2 + 1's passes
+    if (y == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int done = flags[F + f2 + h];
+        if (f0 + f2 + h < B) ran += !early_exit ? iterations
+                                    : done ? done : blk;
+      }
+    }
+    add_passes<F>(passes, tid, ran, blk);
   }
   __syncthreads();
   for (int i = tid; i < F * N; i += kThreads) {   // coalesced out rows
@@ -583,7 +654,8 @@ template <int WR, bool SP, int F, int R>
 cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
                    const int* var_slots, int M, int N, int Wc, int iterations,
                    int early_exit, float norm_offset, float norm_scale,
-                   int use_offset, int use_scale, cudaStream_t stream) {
+                   int use_offset, int use_scale, cudaStream_t stream,
+                   unsigned long long* passes) {
   using K = Kernel<WR, SP, F, R>;
   const int smem = smem_bytes<F>(M, N, WR, Wc);
   if (smem > 48 * 1024) {
@@ -595,11 +667,11 @@ cudaError_t launch(const float* rx, int8_t* out, int B, const int* slot_var,
   if constexpr (K::kPairs)
     bp_minsum_pairs<WR><<<grid, K::block(), smem, stream>>>(
         rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
-        norm_offset, norm_scale, use_offset, use_scale);
+        norm_offset, norm_scale, use_offset, use_scale, passes);
   else
     bp_kernel<WR, SP, F, R><<<grid, K::block(), smem, stream>>>(
         rx, out, B, slot_var, var_slots, M, N, Wc, iterations, early_exit,
-        norm_offset, norm_scale, use_offset, use_scale);
+        norm_offset, norm_scale, use_offset, use_scale, passes);
   return cudaGetLastError();
 }
 
@@ -608,12 +680,13 @@ cudaError_t dispatch(int Wr, const float* rx, int8_t* out, int B,
                      const int* slot_var, const int* var_slots, int M, int N,
                      int Wc, int iterations, int early_exit, float norm_offset,
                      float norm_scale, int use_offset, int use_scale,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, unsigned long long* passes) {
 #define BP_CASE(W)                                                            \
   case W:                                                                     \
     return launch<W, SP, F, R>(rx, out, B, slot_var, var_slots, M, N, Wc,     \
                                iterations, early_exit, norm_offset,           \
-                               norm_scale, use_offset, use_scale, stream);
+                               norm_scale, use_offset, use_scale, stream,     \
+                               passes);
   switch (Wr) {
     BP_CASE(2) BP_CASE(3) BP_CASE(4) BP_CASE(5) BP_CASE(6) BP_CASE(7)
     BP_CASE(8)
@@ -627,7 +700,8 @@ template <int F, int R>
 int decode(int sumproduct, const float* rx, int8_t* out, int B,
            const int* slot_var, const int* var_slots, int M, int N, int Wr,
            int Wc, int iterations, int early_exit, float norm_offset,
-           float norm_scale, int use_offset, int use_scale, void* stream) {
+           float norm_scale, int use_offset, int use_scale, void* stream,
+           unsigned long long* passes) {
   if (B <= 0 || iterations < 0 || Wc < 1 || Wc > kWcMax || Wr < kWrMin ||
       Wr > kWrMax)
     return cudaErrorInvalidValue;
@@ -636,11 +710,11 @@ int decode(int sumproduct, const float* rx, int8_t* out, int B,
              ? dispatch<true, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
                                     N, Wc, iterations, early_exit,
                                     norm_offset, norm_scale, use_offset,
-                                    use_scale, s)
+                                    use_scale, s, passes)
              : dispatch<false, F, R>(Wr, rx, out, B, slot_var, var_slots, M,
                                      N, Wc, iterations, early_exit,
                                      norm_offset, norm_scale, use_offset,
-                                     use_scale, s);
+                                     use_scale, s, passes);
 }
 
 // y = log_tanh_half(x), elementwise: the check step's function alone, for
@@ -718,23 +792,28 @@ int bp_large_smem_bytes(int M, int N, int Wr, int Wc) {
 // `stream`, with the tile (bp_decode) or large-code (bp_decode_large)
 // kernel. rx (B, N) f32 and out (B, N) int8 are row-major device buffers;
 // slot_var (E,) and var_slots (N, Wc) are the int32 w-major tables of
-// ops/layout.py. Returns the launch's cudaError_t; does not synchronise.
+// ops/layout.py. passes, where not null, is two device counters that each
+// block adds its lane-passes and frame-passes into (see "Lane use" above).
+// Returns the launch's cudaError_t; does not synchronise.
 int bp_decode(int sumproduct, const float* rx, int8_t* out, int B,
               const int* slot_var, const int* var_slots, int M, int N, int Wr,
               int Wc, int iterations, int early_exit, float norm_offset,
-              float norm_scale, int use_offset, int use_scale, void* stream) {
+              float norm_scale, int use_offset, int use_scale, void* stream,
+              unsigned long long* passes) {
   return decode<kTileFrames, kTileRows>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
-      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
+      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream,
+      passes);
 }
 int bp_decode_large(int sumproduct, const float* rx, int8_t* out, int B,
                     const int* slot_var, const int* var_slots, int M, int N,
                     int Wr, int Wc, int iterations, int early_exit,
                     float norm_offset, float norm_scale, int use_offset,
-                    int use_scale, void* stream) {
+                    int use_scale, void* stream, unsigned long long* passes) {
   return decode<kLargeFrames, kLargeRows>(
       sumproduct, rx, out, B, slot_var, var_slots, M, N, Wr, Wc, iterations,
-      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream);
+      early_exit, norm_offset, norm_scale, use_offset, use_scale, stream,
+      passes);
 }
 
 const char* bp_error_string(int err) {

@@ -152,6 +152,7 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
             i, i,           # iterations, early_exit
             f, f, i, i,     # norm_offset, norm_scale, use_offset, use_scale
             p,              # cudaStream_t
+            p,              # unsigned long long passes[2] or NULL
         ]
         fns = {"bp_decode": decode_args, "bp_decode_large": decode_args,
                "bp_smem_bytes": [i] * 4, "bp_large_smem_bytes": [i] * 4,

@@ -59,7 +59,9 @@ arithmetic (``log_tanh_half_mirror``, in ``decode_sumproduct_phi``), which
 must decide each such frame as the kernel does. The wrappers run a kernel
 on a CUDA tensor and its plain version on a CPU tensor; there is no
 fallback between the two. Each launch adds one to ``LAUNCHES[kernel
-name]``.
+name]``. The library call is the span ``ldpc.bp.launch``; while a profiler
+records, the tile and large-code kernels add their passes into the counters
+``PASS_COUNTERS`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ import torch
 
 from ..codes import LdpcCode
 
+from ..utils.profiling import accumulator, recording, span
 from .decode import _others_sum
 from .layout import PAD_BIG, check_major_tables, edge_slots, wmajor_tables
 
@@ -83,7 +86,7 @@ __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
            "supported", "smem_bytes", "large_smem_bytes", "exact_smem_bytes",
            "route", "tier", "phi_probe", "log_tanh_half_mirror",
            "decode_sumproduct_phi", "occupancy",
-           "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK"]
+           "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK", "PASS_COUNTERS"]
 
 FRAMES_PER_BLOCK = 32          # frames of a tile or exact block
 LARGE_FRAMES_PER_BLOCK = 16    # frames of a large-code block
@@ -102,6 +105,10 @@ _IMPLS = ("auto", "gram", "split")
 KERNELS = tuple(f"bp_{m}{k}" for k in ("", "_large", "_exact")
                 for m in ("sumproduct", "minsum"))
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the counters (utils/profiling.py) that a tile or large-code launch adds its
+# passes into while a profiler records: each block's passes times its
+# frames, and the passes its frames ran while live (early exit), summed
+PASS_COUNTERS = ("bp.lane_passes", "bp.frame_passes")
 _ROUTE_SUFFIX = {"tile": "", "large": "_large", "exact": "_exact"}
 
 
@@ -386,7 +393,10 @@ def _unsat(vhat: torch.Tensor, d) -> torch.Tensor:
 
 
 def _decode_plain(rx: torch.Tensor, code: LdpcCode, iterations: int,
-                  early_exit: bool, sumproduct: bool, check) -> torch.Tensor:
+                  early_exit: bool, sumproduct: bool, check,
+                  live: list | None = None) -> torch.Tensor:
+    """The plain w-major decoder; under early exit ``live``, where given,
+    gets each pass's (B,) mask of the frames that ran it (not yet done)."""
     d = _dev_tables(code, rx.device)
     r = -rx                                        # r (SPA) / Lci (min-sum)
     base = (d.deg - 1.0) * r if sumproduct else r
@@ -405,6 +415,8 @@ def _decode_plain(rx: torch.Tensor, code: LdpcCode, iterations: int,
     vhat = r <= 0 if sumproduct else r < 0        # the decision of L = r
     done = torch.zeros(rx.shape[0], dtype=torch.bool, device=rx.device)
     for _ in range(iterations):
+        if live is not None:
+            live.append(~done)
         tot, Eg = _var_gather(check(msg), d)
         v_new = decide(tot)
         msg_new = _var_messages(Eg, base, d)
@@ -572,29 +584,36 @@ def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
     from ._build import load_library
 
     _check_gate(code, kind)
+    name = f"bp_{'sumproduct' if sumproduct else 'minsum'}{_ROUTE_SUFFIX[kind]}"
     out = torch.empty((rx.shape[0], code.N), dtype=torch.int8, device=rx.device)
     with torch.cuda.device(rx.device):
         stream = torch.cuda.current_stream(rx.device).cuda_stream
         if kind == "exact":
             lib = lib or load_library("bp_exact")
             d = _exact_tables(code, rx.device)
-            err = lib.bp_exact_decode(
-                int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
-                d.chk_var_i32.data_ptr(), d.var_cslots_i32.data_ptr(),
-                d.t.M, d.t.N, d.t.Wr, d.t.Wc, int(iterations), stream)
+            with span("ldpc.bp.launch", kernel=name):
+                err = lib.bp_exact_decode(
+                    int(sumproduct), rx.data_ptr(), out.data_ptr(),
+                    rx.shape[0], d.chk_var_i32.data_ptr(),
+                    d.var_cslots_i32.data_ptr(), d.t.M, d.t.N, d.t.Wr, d.t.Wc,
+                    int(iterations), stream)
             what = lib.bp_exact_error_string
         else:
             lib = lib or load_library("bp_wmajor")
             d = _dev_tables(code, rx.device)
             fn = lib.bp_decode if kind == "tile" else lib.bp_decode_large
-            err = fn(int(sumproduct), rx.data_ptr(), out.data_ptr(), rx.shape[0],
-                     d.slot_var_i32.data_ptr(), d.var_slots_i32.data_ptr(),
-                     d.t.M, d.t.N, d.t.Wr, d.t.Wc, int(iterations),
-                     int(early_exit), ctypes.c_float(norm_offset),
-                     ctypes.c_float(norm_scale), int(norm_offset != 0.0),
-                     int(norm_scale != 1.0), stream)
+            # the kernels add their passes only while a profiler records
+            passes = (accumulator(PASS_COUNTERS, rx.device).data_ptr()
+                      if recording() else None)
+            with span("ldpc.bp.launch", kernel=name):
+                err = fn(int(sumproduct), rx.data_ptr(), out.data_ptr(),
+                         rx.shape[0], d.slot_var_i32.data_ptr(),
+                         d.var_slots_i32.data_ptr(), d.t.M, d.t.N, d.t.Wr,
+                         d.t.Wc, int(iterations), int(early_exit),
+                         ctypes.c_float(norm_offset),
+                         ctypes.c_float(norm_scale), int(norm_offset != 0.0),
+                         int(norm_scale != 1.0), stream, passes)
             what = lib.bp_error_string
-    name = f"bp_{'sumproduct' if sumproduct else 'minsum'}{_ROUTE_SUFFIX[kind]}"
     if err:
         raise RuntimeError(f"{name} launch failed: {what(err).decode()}")
     LAUNCHES[name] += 1

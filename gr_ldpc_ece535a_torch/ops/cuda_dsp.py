@@ -14,7 +14,8 @@ a CPU tensor they run the plain versions beside them there (``agc_plain``,
 ``costas_loop_plain``, ``_pfb_track_plain``); there is no fallback between
 the two. The wrappers here take CUDA tensors only and raise on anything
 else, and on a launch the kernel refuses. Each launch adds one to
-``LAUNCHES[kernel name]``; an empty stream launches nothing.
+``LAUNCHES[kernel name]``; an empty stream launches nothing. Each library
+call is the span ``ldpc.dsp.launch`` (arg ``kernel``; ``utils/profiling.py``).
 
 The AGC has two routes, both kernels: the parallel affine scan
 (``agc_scan``, three launches counted as one), which holds where
@@ -33,6 +34,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 __all__ = ["agc_loop", "costas_loop", "pfb_track", "scan_condition",
            "shortcut_check", "KERNELS", "SERIAL", "SCAN", "TRACKER",
@@ -157,10 +160,12 @@ def _launch(name: str, fn: str, x: torch.Tensor, a: float, b: float,
 
     lib = load_library("dsp_loops")
     with torch.cuda.device(x.device):
-        err = getattr(lib, fn)(
-            x.data_ptr(), y.data_ptr(), x.numel(), ctypes.c_float(a),
-            ctypes.c_float(b), state.data_ptr(), out.data_ptr(), *extra,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with span("ldpc.dsp.launch", kernel=name):
+            err = getattr(lib, fn)(
+                x.data_ptr(), y.data_ptr(), x.numel(), ctypes.c_float(a),
+                ctypes.c_float(b), state.data_ptr(), out.data_ptr(), *extra,
+                stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.dsp_error_string(err).decode()}")
@@ -343,7 +348,8 @@ def _launch_track(lib, args: list, stream) -> None:
     """``lib.pfb_track(*args, stream)``, counted; RuntimeError where the
     library refuses it (a cluster that does not fit, a refused attribute,
     the launch's own error): never a retry at another cluster size."""
-    err = lib.pfb_track(*args, stream)
+    with span("ldpc.dsp.launch", kernel=TRACKER):
+        err = lib.pfb_track(*args, stream)
     if err:
         raise RuntimeError(f"{TRACKER} launch failed: "
                            f"{lib.pfb_track_error_string(err).decode()}")

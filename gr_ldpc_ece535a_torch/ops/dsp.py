@@ -26,6 +26,10 @@ as one thread's recurrence) and on the CPU as their plain versions here,
 per-sample loops in float32 in JAX's order of operations. The clock tracker's block loop runs on the card as
 the kernel of ``csrc/pfb_track.cu`` and on the CPU as
 ``_pfb_track_plain``, a torch step a block.
+
+``rx_chain_pairs`` is the span ``ldpc.dsp.chain``, its stages
+``ldpc.dsp.agc``, ``ldpc.dsp.cfo``, ``ldpc.dsp.timing`` and
+``ldpc.dsp.carrier`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import cuda_dsp
 
 __all__ = [
@@ -941,6 +946,7 @@ def pfb_clock_sync_ff_pairs(xp: torch.Tensor, sps: int, nfilts: int = 32,
     return ys.reshape(2, -1), (a_hat, r_hat)
 
 
+@span("ldpc.dsp.chain")
 def rx_chain_pairs(xp: torch.Tensor, sps: int = 2, excess_bw: float = 0.35,
                    nfilts: int = 32, agc_block: int = 256,
                    carrier_block: int = 64, max_freq: float = 0.2,
@@ -960,16 +966,20 @@ def rx_chain_pairs(xp: torch.Tensor, sps: int = 2, excess_bw: float = 0.35,
     """
     if timing not in ("track", "ff"):
         raise ValueError(f"unknown timing {timing!r}; use 'track' or 'ff'")
-    xp = block_agc_pairs(xp, block=agc_block)
-    f = coarse_cfo_estimate_pairs(xp, max_freq=max_freq)
-    xp = mix_pairs(xp, f)
-    if timing == "ff":
-        yp, _model = pfb_clock_sync_ff_pairs(xp, sps=sps, nfilts=nfilts,
-                                             excess_bw=excess_bw,
-                                             rate_clip=timing_rate_clip)
-    else:
-        yp, _state = pfb_clock_sync_pairs(xp, sps=sps, nfilts=nfilts,
-                                          excess_bw=excess_bw,
-                                          block_syms=timing_block_syms,
-                                          rate_clip=timing_rate_clip)
-    return vv_carrier_recovery_pairs(yp, block=carrier_block)
+    with span("ldpc.dsp.agc"):
+        xp = block_agc_pairs(xp, block=agc_block)
+    with span("ldpc.dsp.cfo"):
+        f = coarse_cfo_estimate_pairs(xp, max_freq=max_freq)
+        xp = mix_pairs(xp, f)
+    with span("ldpc.dsp.timing", mode=timing):
+        if timing == "ff":
+            yp, _model = pfb_clock_sync_ff_pairs(xp, sps=sps, nfilts=nfilts,
+                                                 excess_bw=excess_bw,
+                                                 rate_clip=timing_rate_clip)
+        else:
+            yp, _state = pfb_clock_sync_pairs(xp, sps=sps, nfilts=nfilts,
+                                              excess_bw=excess_bw,
+                                              block_syms=timing_block_syms,
+                                              rate_clip=timing_rate_clip)
+    with span("ldpc.dsp.carrier"):
+        return vv_carrier_recovery_pairs(yp, block=carrier_block)

@@ -23,6 +23,12 @@ Acquisition decodes with make_decoder's "auto" backend (the precise kernels
 on a card); the body with "cuda_fast" in kernel_mode "fast" (stream.py's
 decoder_backend). Chunk sizes come from the real frame count, each a
 multiple of 8 frames so that the chunks' bitmask bytes concatenate.
+
+Spans (``utils/profiling.py``, no synchronise of their own): a ``receive``
+is ``ldpc.rx.receive``; its stages ``ldpc.rx.acquire``, ``ldpc.rx.decode``
+(the body), ``ldpc.rx.fetch`` (the wait for the device and the copies) and
+``ldpc.rx.host`` (the payload assembled on the host); the device-resident
+path's queueing is ``ldpc.rx.dispatch``, one ``ldpc.rx.decode`` a chunk.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from ..codes import LdpcCode, get_code
 from ..ops import make_decoder, pack_bits, pack_bits_np, syndrome_weight
 from ..ops import bits as _bits
 from ..ops import cuda_bp
+from ..utils.profiling import span
 from .mesh import make_mesh, mesh_axis_sizes
 from .stream import decoder_backend, shard_stream_decode
 
@@ -270,6 +277,7 @@ class StreamReceiver:
         self.device = self.mesh.devices[0]
         self._side_streams: list = []
 
+    @span("ldpc.rx.receive")
     def receive(self, symbols, fetch_weights: bool = True,
                 profile: bool = False) -> ReceiveResult:
         """Decode a real-symbol stream (complex input: the real part).
@@ -303,9 +311,10 @@ class StreamReceiver:
             head = reals = np.ascontiguousarray(
                 np.real(np.asarray(symbols)), np.float32)
             T = len(reals)
-        acq = acquire(head, code, method=self.method,
-                      iterations=self.iterations, threshold=self.threshold,
-                      window=self.acquire_window, device=self.device)
+        with span("ldpc.rx.acquire"):
+            acq = acquire(head, code, method=self.method,
+                          iterations=self.iterations, threshold=self.threshold,
+                          window=self.acquire_window, device=self.device)
         t_acquire = time.perf_counter() - t0
         if acq is None:
             return _no_lock({"acquire_s": t_acquire})
@@ -318,27 +327,29 @@ class StreamReceiver:
         chunk = self._S * N
         T_padded = -(-T // chunk) * chunk
         t0 = time.perf_counter()
-        if on_device:
-            body = -dev if acq.inverted else dev
-            body = torch.cat([body, body.new_zeros(T_padded - T)])
-        else:
-            padded = np.zeros(T_padded, np.float32)
-            padded[:T] = -reals if acq.inverted else reals
-            body = torch.as_tensor(padded, device=self.device)
-        out, w = shard_stream_decode(
-            body, code, self.mesh, method=self.method,
-            iterations=self.iterations, offset=phase,
-            stream_axis=self.stream_axis, return_packed=packed_ok,
-            kernel_mode=self.kernel_mode)
         bitmask = fetch_weights is False and packed_ok
-        if bitmask:
-            w = _accept_bitmask(w, self.threshold)
+        with span("ldpc.rx.decode"):
+            if on_device:
+                body = -dev if acq.inverted else dev
+                body = torch.cat([body, body.new_zeros(T_padded - T)])
+            else:
+                padded = np.zeros(T_padded, np.float32)
+                padded[:T] = -reals if acq.inverted else reals
+                body = torch.as_tensor(padded, device=self.device)
+            out, w = shard_stream_decode(
+                body, code, self.mesh, method=self.method,
+                iterations=self.iterations, offset=phase,
+                stream_axis=self.stream_axis, return_packed=packed_ok,
+                kernel_mode=self.kernel_mode)
+            if bitmask:
+                w = _accept_bitmask(w, self.threshold)
         timings = {"acquire_s": t_acquire}
         if profile:
             _sync(w.device)
             timings["decode_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-        out_np, w_np = out.cpu().numpy(), w.cpu().numpy()
+        with span("ldpc.rx.fetch"):
+            out_np, w_np = out.cpu().numpy(), w.cpu().numpy()
         t_fetch = time.perf_counter() - t0
         if profile:
             nbytes = out_np.nbytes + w_np.nbytes
@@ -347,18 +358,19 @@ class StreamReceiver:
         else:
             timings["decode_fetch_s"] = t_fetch
         t0 = time.perf_counter()
-        if bitmask:
-            accepted = np.unpackbits(w_np)[skip:skip + n_valid].astype(bool)
-            w = np.zeros(0, np.int32)
-        else:
-            w = w_np[skip:skip + n_valid].astype(np.int32)
-            accepted = w <= self.threshold
-        if packed_ok:
-            payload = _rows_bytes(out_np[skip:skip + n_valid], accepted)
-        else:
-            data_bits = out_np[skip:skip + n_valid][accepted][:, code.M:]
-            payload = (pack_bits_np(data_bits).reshape(-1).tobytes()
-                       if data_bits.size else b"")
+        with span("ldpc.rx.host"):
+            if bitmask:
+                accepted = np.unpackbits(w_np)[skip:skip + n_valid].astype(bool)
+                w = np.zeros(0, np.int32)
+            else:
+                w = w_np[skip:skip + n_valid].astype(np.int32)
+                accepted = w <= self.threshold
+            if packed_ok:
+                payload = _rows_bytes(out_np[skip:skip + n_valid], accepted)
+            else:
+                data_bits = out_np[skip:skip + n_valid][accepted][:, code.M:]
+                payload = (pack_bits_np(data_bits).reshape(-1).tobytes()
+                           if data_bits.size else b"")
         timings["host_s"] = time.perf_counter() - t0
         return ReceiveResult(
             data=payload, acquisition=acq, n_frames=int(n_valid),
@@ -379,6 +391,7 @@ class StreamReceiver:
         # all-zero codeword
         return min(self.acquire_window, T - (1 + _VERIFY_FRAMES) * self.code.N + 1)
 
+    @span("ldpc.rx.dispatch")
     def _dispatch(self, dev: torch.Tensor, T: int, n_off: int, chunks: int,
                   profile: bool = False) -> dict:
         """Queue acquisition, lock selection and ``chunks`` body decodes on
@@ -392,13 +405,15 @@ class StreamReceiver:
         # n_off - 1, and the gather must stay in bounds
         pad = max(N, -(-(n_off - 1) // N) * N)
         t0 = time.perf_counter()
-        ext = torch.cat([dev, dev.new_zeros(chunks * Fc * N + pad - T)])
-        w = _acquire_weights(ext[:n_off - 1 + L * N], code, self.method,
-                             self.iterations, n_off, _VERIFY_FRAMES)
-        ok, off, pol = _select_lock(w, self.threshold, n_off)
-        w0 = w.reshape(-1).index_select(0, ((pol * n_off + off) * L).reshape(1))
-        scalars = torch.stack([ok.to(torch.int64), off, pol,
-                               w0[0].to(torch.int64)])
+        with span("ldpc.rx.acquire"):
+            ext = torch.cat([dev, dev.new_zeros(chunks * Fc * N + pad - T)])
+            w = _acquire_weights(ext[:n_off - 1 + L * N], code, self.method,
+                                 self.iterations, n_off, _VERIFY_FRAMES)
+            ok, off, pol = _select_lock(w, self.threshold, n_off)
+            w0 = w.reshape(-1).index_select(
+                0, ((pol * n_off + off) * L).reshape(1))
+            scalars = torch.stack([ok.to(torch.int64), off, pol,
+                                   w0[0].to(torch.int64)])
         timings: dict = {"fused": True, "pipeline_chunks": chunks}
         if profile:
             _sync(dev.device)
@@ -428,7 +443,7 @@ class StreamReceiver:
 
         outs = []
         for c, s in enumerate(streams):
-            with on(s):
+            with on(s), span("ldpc.rx.decode", chunk=c):
                 frames = ext.index_select(0, base + (off + c * Fc * N))
                 frames = frames.reshape(Fc, N)
                 frames = torch.where(pol > 0, -frames, frames)
@@ -462,16 +477,18 @@ class StreamReceiver:
         t0 = time.perf_counter()
         waits = [(st["device"], ev) for st in states for ev in st["events"]]
         if waits:
-            device = waits[0][0]
-            cur = torch.cuda.current_stream(device)
-            for _, ev in waits:
-                cur.wait_event(ev)
-            done = torch.cuda.Event()
-            done.record(cur)
-            done.synchronize()
+            with span("ldpc.rx.fetch"):
+                device = waits[0][0]
+                cur = torch.cuda.current_stream(device)
+                for _, ev in waits:
+                    cur.wait_event(ev)
+                done = torch.cuda.Event()
+                done.record(cur)
+                done.synchronize()
         t_fetch = time.perf_counter() - t0
         return [self._assemble(st, t_fetch) for st in states]
 
+    @span("ldpc.rx.host")
     def _assemble(self, st: dict, t_fetch: float) -> ReceiveResult:
         N = self.code.N
         timings = st["timings"]

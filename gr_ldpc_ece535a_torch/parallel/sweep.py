@@ -11,7 +11,12 @@ simulator does:
 
 The counts are int64 sums on the device, fetched to the host once a step.
 (The JAX step casts its int32 sums to float32 before its psum, which rounds
-counts above 2^24 - 131,072 frames x N = 640 bits reach that.)
+counts above 2^24 - 131,072 frames x N = 640 bits reach that.) A step is
+the span ``ldpc.sweep.step`` (args: the key and the method), with the
+children ``ldpc.sweep.draw``, ``ldpc.decode.<method>``,
+``ldpc.sweep.counts``, ``ldpc.sweep.allreduce`` (on a mesh) and
+``ldpc.sweep.fetch``, the host's wait for the step's device work
+(``utils/profiling.py``).
 
 Over a mesh (parallel/mesh.py) every shard of the "batch" axis draws its own
 frames from (*key, i), i its global shard index, so the process layout never
@@ -33,6 +38,7 @@ from ..codes import LdpcCode
 from ..ops import awgn, bpsk_map, encode_bits, make_decoder, syndrome_weight
 from ..ops.cuda_bp import cuda_decode_minsum, cuda_decode_sumproduct, supported
 from ..ops.decode import METHODS
+from ..utils.profiling import span
 from .mesh import Mesh, mesh_axis_sizes
 
 __all__ = ["SweepStats", "make_sweep_step", "draw_frames", "count_errors"]
@@ -60,6 +66,7 @@ def _generator(key: Sequence[int] | int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(seed)
 
 
+@span("ldpc.sweep.draw")
 def draw_frames(code: LdpcCode, frames: int, key, ebn0_db: float,
                 device) -> tuple[torch.Tensor, torch.Tensor]:
     """(codeword bits u (B, N) int8, received rx (B, N) f32), drawn on
@@ -91,6 +98,7 @@ def count_errors(vhat: torch.Tensor, u: torch.Tensor,
                       n_bits=B * code.N)
 
 
+@span("ldpc.sweep.allreduce")
 def _all_reduce(counts: torch.Tensor, group) -> torch.Tensor:
     """int64 sum across the group's processes (gloo on host tensors)."""
     import torch.distributed as dist
@@ -156,18 +164,28 @@ def make_sweep_step(
         decode_fn = _kernel_decoder(code, name, iterations, early_exit)
     dec = decode_fn or make_decoder(code, method=name, iterations=iterations,
                                     early_exit=early_exit, backend="torch")
+    decode_span = f"ldpc.decode.{name}"
+    frames = n_batch * frames_per_device
 
-    def step(key, ebn0_db: float) -> SweepStats:
+    def run(key, ebn0_db: float) -> SweepStats:
         total = torch.zeros(4, dtype=torch.int64, device=device)
         for i, dev in shards:
             shard_key = key if n_batch == 1 else [*np.atleast_1d(key).tolist(), i]
             u, rx = draw_frames(code, frames_per_device, shard_key, ebn0_db, dev)
-            total += _counts(dec(rx), u, code).to(device)
+            with span(decode_span):
+                vhat = dec(rx)
+            with span("ldpc.sweep.counts"):
+                total += _counts(vhat, u, code).to(device)
         if mesh is not None and mesh.group is not None:
             total = _all_reduce(total, mesh.group)
-        frames = n_batch * frames_per_device
-        return SweepStats(*total.tolist(), n_frames=frames,
-                          n_bits=frames * code.N)
+        with span("ldpc.sweep.fetch"):
+            counts = total.tolist()
+        return SweepStats(*counts, n_frames=frames, n_bits=frames * code.N)
+
+    def step(key, ebn0_db: float) -> SweepStats:
+        # the span holds run's return too, where its tensors are freed
+        with span("ldpc.sweep.step", key=key, method=name):
+            return run(key, ebn0_db)
 
     step.decode = dec        # the decoder the step runs, rx -> vhat
     return step

@@ -11,7 +11,9 @@ truly (vs the transmitted codeword) and syndrome-detected.
 ``WaterfallResult`` is the JAX package's (plus the wall time of each
 point), so its table, Octave script and JSON match it byte for byte given
 the same arrays. ``band_check`` holds a
-result against a committed curve within binomial bands.
+result against a committed curve within binomial bands. A call is the span
+``ldpc.sweep.run``, its steps the ``ldpc.sweep.step`` spans of
+``parallel/sweep.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..codes import LdpcCode, get_code
 
 from ..parallel import make_sweep_step
+from ..utils.profiling import span
 
 __all__ = ["WaterfallResult", "run_waterfall", "band_check", "DEFAULT_METHODS"]
 
@@ -125,6 +128,7 @@ class WaterfallResult:
         plt.close(fig)
 
 
+@span("ldpc.sweep.run")
 def run_waterfall(
     code: LdpcCode | str = "sim_50_100",
     ebn0_db: Optional[Sequence[float]] = None,

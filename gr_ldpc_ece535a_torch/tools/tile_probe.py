@@ -106,14 +106,14 @@ CONSTANT = [
      "  const int* vs,",
      "template <int F, class VS>\n__device__ __forceinline__ VarRow "
      "load_var(const float* msg, const float* r, VS vs,"),
-    ("float norm_offset, float norm_scale, int use_offset, int use_scale) {\n"
+    ("          unsigned long long* __restrict__ passes) {\n"
      "  constexpr int kThreads = F * R;",
-     "float norm_offset, float norm_scale, int use_offset, int use_scale,\n"
+     "          unsigned long long* __restrict__ passes,\n"
      "          const __grid_constant__ ParamTables pt) {\n"
      "  constexpr int kThreads = F * R;"),
-    ("                float norm_scale, int use_offset, int use_scale) {\n"
+    ("                unsigned long long* __restrict__ passes) {\n"
      "  constexpr int F = kTileFrames, R = kPairRows, L = F / 2;",
-     "                float norm_scale, int use_offset, int use_scale,\n"
+     "                unsigned long long* __restrict__ passes,\n"
      "                const __grid_constant__ ParamTables pt) {\n"
      "  constexpr int F = kTileFrames, R = kPairRows, L = F / 2;"),
     ("  int* sv = reinterpret_cast<int*>(r + N * kRStride);\n"
@@ -123,8 +123,8 @@ CONSTANT = [
      "\n  int* flags = vs_smem + N * Wc;"),
     ("sv[i] = slot_var[i];", "sv_smem[i] = slot_var[i];"),
     ("vs[i] = var_slots[i];", "vs_smem[i] = var_slots[i];"),
-    ("        norm_offset, norm_scale, use_offset, use_scale);",
-     "        norm_offset, norm_scale, use_offset, use_scale,\n"
+    ("        norm_offset, norm_scale, use_offset, use_scale, passes);",
+     "        norm_offset, norm_scale, use_offset, use_scale, passes,\n"
      "        param_tables(slot_var, WR * M, var_slots, N * Wc));"),
 ]
 _BOUNDS = "__launch_bounds__(kTileFrames / 2 * kPairRows)"

@@ -1,5 +1,6 @@
 """The port's utils against the JAX package's: config round trip across the
-two packages, throughput meter, BMP synth/parse, profiling.
+two packages, BMP synth/parse, profiling (its spans and counters in
+``tests/test_torch_profiling.py``).
 
 ``tests/test_utils.py``'s cases on ``gr_ldpc_ece535a_torch/utils``
 (``enable_persistent_compile_cache`` is JAX's and has no counterpart), the
@@ -20,8 +21,6 @@ from gr_ldpc_ece535a_torch.utils import (
     PipelineConfig,
     ReceiverConfig,
     SimConfig,
-    ThroughputMeter,
-    Timer,
     device_sync,
     make_bmp,
     parse_bmp_header,
@@ -91,18 +90,6 @@ def test_pipeline_config_builds_both_parts():
     cfg = PipelineConfig(receiver={"method": 1}, channel={"ebn0_db": 3.0})
     assert cfg.receiver_config() == ReceiverConfig(method=1)
     assert cfg.channel_config().ebn0_db == 3.0
-
-
-def test_throughput_meter_and_timer():
-    m = ThroughputMeter("bits")
-    with m.step(1000):
-        pass
-    m.add(500, 0.5)
-    assert m.steps == 2
-    assert m.rate == pytest.approx(1500 / m.seconds)
-    with Timer() as t:
-        pass
-    assert t.elapsed >= 0
 
 
 def test_device_sync_returns_its_argument():
