@@ -60,7 +60,8 @@ Phases, each of which raises on a miss:
               zero and +-30 x codeword inputs there; each sweep step's
               decoder on the rx that step draws, at the shapes of the
               sweeps of phase 4 (sim_50_100 125,000 x 5, gen_256_512
-              131,072 x 20, early exit);
+              131,072 x 20, early exit), and the step's counts (its first
+              call eager, then CUDA graph replays) against count_errors;
               impl="split" against the tile; every study instance at
               131,072 x 20 against its IEEE plain version: 0 mismatching
               frames for study_phi_libm (the libm phi the shipped SPA had
@@ -149,7 +150,9 @@ Phases, each of which raises on a miss:
                 sweep     run_waterfall("sim_50_100"), the reference
                           experiment at 10^6 frames a point, held within
                           binomial bands of the committed JAX curve; and a
-                          gen_256_512 sweep on the large-code kernels
+                          gen_256_512 sweep on the large-code kernels (its
+                          steps replay the graphs phase 3 captured, and the
+                          replays count the launches)
                 anchor    tools/anchor.py: that sim_50_100 result against
                           the reference binary ldpc_lapack's committed run
                           (results/reference_lapack_run.json), and
@@ -529,6 +532,7 @@ def main() -> int:
     from gr_ldpc_ece535a_torch.ops.layout import (
         check_major_tables, edge_slots, wmajor_tables)
     from gr_ldpc_ece535a_torch.parallel import make_sweep_step
+    from gr_ldpc_ece535a_torch.parallel import sweep as psweep
     from gr_ldpc_ece535a_torch.parallel.sweep import count_errors, draw_frames
     from gr_ldpc_ece535a_torch.sim import band_check, run_waterfall
     from gr_ldpc_ece535a_torch.tools import (ablate_pallas, anchor,
@@ -1177,8 +1181,13 @@ def main() -> int:
                         sent=u)
                 if step((0, p, 0), float(e)) != count_errors(vk, u, c):
                     raise AssertionError(f"the step decodes other frames: {tag}")
+            # the first step captured the graphs that the others replayed
+            if not any(work[2:6] == (method, fps, iters, True)
+                       for work, _, _ in psweep._GRAPHS):
+                raise AssertionError(f"{method} sweep steps {c.name}: no graphs")
             log(f"[kernels] {method} sweep steps {c.name} {fps}x{iters}: "
-                f"{len(pts)} points, peak device memory {peak:.0f} MiB")
+                f"{len(pts)} points (CUDA graphs after the first), peak "
+                f"device memory {peak:.0f} MiB")
     # impl="split" on block_32_64 against the tile kernel (the same arithmetic)
     for method in kernels:
         for early_exit in (False, True):

@@ -15,6 +15,9 @@ arithmetic after mod 2.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..codes import LdpcCode
@@ -24,9 +27,20 @@ from .bits import unpack_bits
 __all__ = ["encode_bits", "encode_bytes", "bpsk_map", "encode_to_symbols"]
 
 
+@functools.lru_cache(maxsize=None)
+def _p_transposed(shape: tuple, data: bytes, dtype: str,
+                  device: torch.device) -> torch.Tensor:
+    """P.T as f32 on ``device``, uploaded once per (P, device): a
+    host-to-device copy from pageable memory waits for the work queued on
+    the stream, and a CUDA graph cannot capture one."""
+    P = np.frombuffer(data, dtype=dtype).reshape(shape)
+    return torch.tensor(P.T, dtype=torch.float32, device=device)
+
+
 def encode_bits(data_bits: torch.Tensor, code: LdpcCode) -> torch.Tensor:
     """(B, K) 0/1 -> codeword bits (B, N) = [check | data]."""
-    Pt = torch.as_tensor(code.P.T, dtype=torch.float32, device=data_bits.device)
+    P = np.ascontiguousarray(code.P)
+    Pt = _p_transposed(P.shape, P.tobytes(), P.dtype.str, data_bits.device)
     z = data_bits.to(torch.float32) @ Pt
     c = torch.remainder(z.to(torch.int32), 2).to(torch.int8)
     return torch.cat([c, data_bits.to(torch.int8)], dim=-1)

@@ -26,7 +26,9 @@ The spans of the sweep path (``sim/waterfall.py``, ``parallel/sweep.py``,
 ``ldpc.bp.launch`` (the BP kernels' library call). The receiver's spans are
 ``ldpc.rx.*``, the receive chain's ``ldpc.dsp.*``. The BP kernels add their
 lane-passes and frame-passes into ``bp.lane_passes`` and
-``bp.frame_passes`` (``ops/cuda_bp.py``).
+``bp.frame_passes`` (``ops/cuda_bp.py``); a sweep step adds one to
+``sweep.steps_graphed`` or ``sweep.steps_eager``, and a capture of its CUDA
+graphs one to ``sweep.graph_captures`` (``parallel/sweep.py``).
 """
 
 from __future__ import annotations
