@@ -6,8 +6,8 @@
 Phases, each of which raises on a miss:
   1. device   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build    nvcc builds csrc/bp_wmajor.cu, csrc/bp_exact.cu,
-              csrc/bp_study.cu, csrc/bp_study_ms.cu, csrc/dsp_loops.cu and
-              csrc/pfb_track.cu, in parallel, into
+              csrc/bp_wide.cu, csrc/bp_study.cu, csrc/bp_study_ms.cu,
+              csrc/dsp_loops.cu and csrc/pfb_track.cu, in parallel, into
               gr_ldpc_ece535a_torch/_build/; prints ptxas's summary and the
               tracker kernel's launch at the chain's composed shape and on
               an app segment (C CTAs a cluster, threads, shared memory,
@@ -35,7 +35,9 @@ Phases, each of which raises on a miss:
               (occupancy); for block_32_64, sim_50_100 and gen_200_400, the
               instance the tile and exact kernels take (a register tier or
               the table route: the library's dispatch must agree with
-              cuda_bp.tier), with its registers, spills and blocks an SM
+              cuda_bp.tier), with its registers, spills and blocks an SM;
+              the 28 wide kernels' registers and spills (bp_wide<WR,
+              method, state in shared or device memory>)
   phi      the SPA kernels' log tanh(x/2) alone on the card, on 10^5 points
               in [2^-20, 40] and at 0, 1e-30, 87, 88, 1e30, inf and NaN,
               against float64: |error| <= max(2^-16 |phi|, 2^-20), beside
@@ -142,7 +144,13 @@ Phases, each of which raises on a miss:
               log tanh algorithm in IEEE f32 (cuda_bp.log_tanh_half_mirror),
               which must decide each two-valid frame as the kernel does;
               printed there, no bar: of the two-valid frames, how many have
-              the kernel and how many the plain version on the sent codeword
+              the kernel and how many the plain version on the sent codeword.
+              The wide kernels (csrc/bp_wide.cu, tools/wide_check.py) at
+              sim_80211n_1944.bp's step, ieee80211n_1944_r12 131,072 x 20
+              at 1.0, 1.5 and 2.0 dB, both methods, early exit on and off:
+              the precise contract against their plain versions, and for
+              the SPA against the plain decoder on its own log tanh
+              algorithm (no frame on two different valid codewords)
   4. paths    each path driven with the launch counts set to 0 just before
               it and read just after; each must launch its kernels:
                 forward   entry()'s forward (sum-product) and make_decoder(
@@ -152,7 +160,9 @@ Phases, each of which raises on a miss:
                           binomial bands of the committed JAX curve; and a
                           gen_256_512 sweep on the large-code kernels (its
                           steps replay the graphs phase 3 captured, and the
-                          replays count the launches)
+                          replays count the launches); and an
+                          ieee80211n_1944_r12 sweep on the wide kernels
+                          (2 points x 262,144 frames, 20 iterations)
                 anchor    tools/anchor.py: that sim_50_100 result against
                           the reference binary ldpc_lapack's committed run
                           (results/reference_lapack_run.json), and
@@ -275,7 +285,9 @@ Phases, each of which raises on a miss:
                           and proto_r4, the loop-unroll study) at
                           131,072 x 20, 4 dB; each times its variants'
                           kernels and plain versions
-  5. times    CUDA-event times of kernel and plain version, host-clock time of
+  5. times    CUDA-event times of kernel and plain version (the wide kernels
+              at 131,072 x 20 on ieee80211n_1944_r12, fixed and early exit,
+              the plain version's fixed form once), host-clock time of
               the whole forward and of each sweep point; the large-code
               kernels' early exit at the gen_256_512 sweep's shape; the tile
               SPA against study_phi (within STUDY_PHI_TIME of it),
@@ -406,7 +418,12 @@ LARGE_PTS = (1.0, 1.5, 2.0)                        # the gen_256_512 sweep
 ANCHOR_FRAMES = 100_000                            # the sim_8_16 anchor sweep
 SOURCES = {"": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
            "_large": "gr_ldpc_ece535a_torch/csrc/bp_wmajor.cu",
-           "_exact": "gr_ldpc_ece535a_torch/csrc/bp_exact.cu"}
+           "_exact": "gr_ldpc_ece535a_torch/csrc/bp_exact.cu",
+           "_wide": "gr_ldpc_ece535a_torch/csrc/bp_wide.cu"}
+# the wide kernels' code: the benchmark's sim_80211n_1944.bp, at its step
+WIDE_CODE = "ieee80211n_1944_r12"
+WIDE_PTS = (1.0, 1.5, 2.0)                         # the contract's points
+WIDE_SWEEP_PTS = (1.5, 2.5)
 _PALLAS = "gr_ldpc_ece535a_tpu/ops/pallas_bp.py"
 LOOP_SOURCE = "gr_ldpc_ece535a_torch/csrc/dsp_loops.cu"
 # no TPU kernel: the JAX package runs both loops as lax.scan recurrences
@@ -420,7 +437,9 @@ REPLACES = {"bp_sumproduct": f"{_PALLAS}:354", "bp_minsum": f"{_PALLAS}:438",
             "bp_sumproduct_large": f"{_PALLAS}:584",
             "bp_minsum_large": f"{_PALLAS}:668",
             "bp_sumproduct_exact": f"{_PALLAS}:260",
-            "bp_minsum_exact": f"{_PALLAS}:207"}
+            "bp_minsum_exact": f"{_PALLAS}:207",
+            # no TPU kernel: JAX decodes codes past its split envelope on XLA
+            "bp_sumproduct_wide": None, "bp_minsum_wide": None}
 STUDY_SOURCE = "gr_ldpc_ece535a_torch/csrc/bp_study.cu"
 # study instance -> the prototype kernel it stands for (study_phi is also
 # proto_r3b.py:192's "full" and proto_r4b.py:34's "phi"; study_phi_libm is
@@ -543,7 +562,7 @@ def main() -> int:
                                              pfb_track_check,
                                              proto_r2, proto_r3, proto_r3b,
                                              proto_r3c, proto_r4, proto_r4b,
-                                             receive_check)
+                                             receive_check, wide_check)
     from gr_ldpc_ece535a_torch.tools._timing import (
         SM_FMA_PER_CLOCK, bins, bound_ms, make_inputs, time_decode)
     from gr_ldpc_ece535a_torch.tools.issue_model import (
@@ -577,6 +596,7 @@ def main() -> int:
             exact = re.search(r"bp_exact_kernelILi(\d+)ELb(\d)ELi\d+ELi(\d+)E",
                               line)
             pairs = re.search(r"bp_minsum_pairsILi(\d+)E", line)
+            wide = re.search(r"bp_wideILi(\d+)ELb(\d)ELb(\d)E", line)
             loop = re.search(r"\d+(agc_loop|costas_loop|pfb_track)_kernel"
                              r"|\d+(agc_scan_\w+?)EP", line)
             study = (cuda_study.instance_of(line)
@@ -587,6 +607,10 @@ def main() -> int:
                 name, notes = None, []
                 if pairs:
                     name = f"bp_minsum_pairs<WR={pairs[1]}>"
+                elif wide:
+                    name = (f"bp_wide<WR={wide[1]}, "
+                            f"{'sumproduct' if wide[2] == '1' else 'minsum'}, "
+                            f"{'shared' if wide[3] == '1' else 'device'}>")
                 elif loop:
                     name = loop[1] or loop[2]
                 elif kernel:
@@ -628,6 +652,14 @@ def main() -> int:
                              f"spills moved: {shipped_ms}")
     log(f"[build] the shipped min-sum kernels' registers and spills as "
         f"recorded (SHIPPED_MS_PTXAS, {len(shipped_ms)} kernels)")
+    wide_names = sorted(n for n in regs if n.startswith("bp_wide<"))
+    if len(wide_names) != 28:
+        raise AssertionError(f"the wide library holds {len(wide_names)} "
+                             f"kernels, not 7 row weights x 2 methods x 2 forms")
+    log(f"[build] the wide kernels (bp_wide<WR, method, state>): registers "
+        f"{min(regs[n] for n in wide_names)}-{max(regs[n] for n in wide_names)}, "
+        f"spill bytes (stores, loads) "
+        f"{sorted({spills.get(n, (0, 0)) for n in wide_names})}")
     wlib, xlib = load_library("bp_wmajor"), load_library("bp_exact")
     slib = cuda_study._study_lib()    # checks its instance table
     mlib = cuda_study_ms._study_ms_lib()
@@ -1401,6 +1433,14 @@ def main() -> int:
     track_res = pfb_track_check.check(dev, log=log)
     max_err[cuda_dsp.TRACKER] = max(
         r["max_abs_err"] for r in track_res.values() if "max_abs_err" in r)
+    # the wide kernels at the shape of sim_80211n_1944.bp's steps (131,072
+    # frames x 20 iterations), against their plain versions and the SPA's
+    # mirror: the precise contract (tools/wide_check.py)
+    wide_code = get_code(WIDE_CODE)
+    for row in wide_check.contract(wide_code, STEP_FRAMES, WIDE_PTS, dev,
+                                   log=lambda s: log(f"[kernels] wide {s}")):
+        name = f"bp_{row['method']}_wide"
+        max_err[name] = max(max_err[name], int(row["plain"]["mismatch"] > 0))
 
     # -- 4. paths -----------------------------------------------------------
     def drive(path, fn, want, launches=(cuda_bp.LAUNCHES,)):
@@ -1459,11 +1499,21 @@ def main() -> int:
         resl = run_waterfall(big, large_pts, frames_per_point=N_FRAMES,
                              iterations=ITERATIONS,
                              methods=("minsum", "sumproduct"), device=dev)
-        return res, resl
+        resw = run_waterfall(WIDE_CODE, list(WIDE_SWEEP_PTS),
+                             frames_per_point=2 * STEP_FRAMES,
+                             iterations=ITERATIONS,
+                             methods=("minsum", "sumproduct"), device=dev)
+        return res, resl, resw
 
-    (res, resl), sweep_counts = drive(
+    (res, resl, resw), sweep_counts = drive(
         "sweep", sweeps, ("bp_sumproduct", "bp_minsum", "bp_sumproduct_large",
-                          "bp_minsum_large"))
+                          "bp_minsum_large", "bp_sumproduct_wide",
+                          "bp_minsum_wide"))
+    for m in resw.methods:
+        log(f"[sweep] {WIDE_CODE} {m}, {ITERATIONS} iterations, "
+            f"{resw.frames_per_point} frames: FER {resw.fer[m].tolist()} "
+            f"at {list(WIDE_SWEEP_PTS)} dB, "
+            f"{sweep_counts[f'bp_{m}_wide']} wide launches")
     misses = band_check(res, ref_curve)
     log(f"[sweep] sim_50_100: {len(res.ebn0_db)} points x "
         f"{len(res.methods)} methods x {res.frames_per_point} frames, "
@@ -1512,7 +1562,7 @@ def main() -> int:
                                             early_exit=False),
                 code, False, min_agree=EXACT_MIN_AGREE)
     path_counts = {"": fwd_counts, "_large": sweep_counts,
-                   "_exact": dec_counts}
+                   "_exact": dec_counts, "_wide": sweep_counts}
     # the sweep's tile launches (the anchor reads its sim_50_100 result) and
     # the anchor's own sim_8_16 sweep
     for name in ("bp_minsum", "bp_sumproduct"):
@@ -1770,6 +1820,12 @@ def main() -> int:
                 log(f"[times] {method} impl={impl} fixed {c.name} {N_FRAMES}x"
                     f"{ITERATIONS}: kernel {ms:.4f} ms "
                     f"({N_FRAMES * c.K / (ms / 1e3):.4e} info bit/s) [{card}]")
+    # the wide kernels at sim_80211n_1944.bp's step, 1.5 dB: fixed and early
+    # exit by CUDA events, the plain version's fixed form once
+    for row in wide_check.times(wide_code, STEP_FRAMES, 1.5, dev,
+                                log=lambda s: log(f"[times] wide {s} [{card}]")):
+        times[f"bp_{row['method']}_wide"] = (row["fixed_ms"], row["plain_ms"])
+
     def interleaved(fns):
         """Each of fns timed twice, in the order last to first, then
         first to last, each time logged; {name: the mean of the two}."""
@@ -2250,7 +2306,8 @@ def main() -> int:
                       path_counts[route_of(name)][name],
                       "sumproduct" if "sumproduct" in name else "minsum",
                       *((big, LARGE_FRAMES) if route_of(name) == "_large"
-                        else ()))
+                        else (wide_code, STEP_FRAMES)
+                        if route_of(name) == "_wide" else ()))
         for name in cuda_bp.KERNELS] + [
         kernel_record(name, STUDY_SOURCE, STUDY_REPLACES[name],
                       study_counts[name], "sumproduct")

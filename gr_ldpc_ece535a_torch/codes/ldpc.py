@@ -35,6 +35,7 @@ import functools
 import numpy as np
 
 from ._h_data import H_DATA, DSOURCE_DATA
+from ._qc_data import QC_DATA, expand_qc
 
 __all__ = [
     "LdpcCode",
@@ -252,10 +253,16 @@ def get_code(name: str = "block_32_64") -> LdpcCode:
 
     Registry keys: 'block_32_64' (the 32x64 code hardcoded in the reference
     encoder/decoder blocks), plus the simulator suite 'sim_5_10', 'sim_50_100',
-    'sim_8_16', 'sim_32_64', 'sim_24_48' from the reference's test_data.h.
+    'sim_8_16', 'sim_32_64', 'sim_24_48' from the reference's test_data.h,
+    and the quasi-cyclic codes of published standards (``_qc_data.py``):
+    'ieee80211n_1944_r12', the IEEE 802.11n rate-1/2 code of the 1944-bit
+    codeword. Cached: a code is built once a process.
     """
+    if name in QC_DATA:
+        Z, proto, order = QC_DATA[name]
+        return LdpcCode.from_h(expand_qc(proto, Z, order), name=name)
     if name not in H_DATA:
-        raise KeyError(f"unknown code {name!r}; available: {sorted(H_DATA)}")
+        raise KeyError(f"unknown code {name!r}; available: {list_codes()}")
     M, N, rows = H_DATA[name]
     H = unpack_hex_rows(rows, N)
     assert H.shape == (M, N)
@@ -263,7 +270,8 @@ def get_code(name: str = "block_32_64") -> LdpcCode:
 
 
 def list_codes() -> list[str]:
-    return sorted(H_DATA)
+    """Every registry key: the reference's codes, then the standards'."""
+    return sorted(H_DATA) + sorted(QC_DATA)
 
 
 def get_sim_dsource(name: str) -> np.ndarray:

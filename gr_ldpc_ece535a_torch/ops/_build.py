@@ -26,8 +26,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "HEADERS", "NVCC_FLAGS", "build",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("bp_wmajor", "bp_exact", "bp_study", "bp_study_ms",
-                        "dsp_loops", "pfb_track")}
+           for name in ("bp_wmajor", "bp_exact", "bp_wide", "bp_study",
+                        "bp_study_ms", "dsp_loops", "pfb_track")}
 # the headers every source may include, hashed into every library's name
 HEADERS = sorted(CSRC.glob("*.cuh"))
 BUILD_DIR = _PKG / "_build"
@@ -160,6 +160,20 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
                # large, sumproduct, Wr, smem bytes, int* blocks, int* threads
                "bp_occupancy": [i, i, i, i, p, p],
                "bp_error_string": [i]}
+    elif name == "bp_wide":
+        fns = {"bp_wide_decode": [
+                   i,           # sumproduct (1) or min-sum (0)
+                   p, p, i,     # rx (B, N) f32, out (B, N) int8, B
+                   p, p, p,     # slot_var (E,), var_slots (Wc, N), var_deg (N,)
+                   i, i, i, i,  # M, N, Wr, Wc
+                   i, i,        # iterations, early_exit
+                   f, f, i, i,  # norm_offset, norm_scale, use_offset, use_scale
+                   p, i,        # workspace or NULL (shared memory), grid
+                   p,           # cudaStream_t
+                   p],          # unsigned long long passes[2] or NULL
+               "bp_wide_state_bytes": [i] * 3,   # M, N, Wr
+               "bp_wide_grid": [i],              # B
+               "bp_wide_error_string": [i]}
     elif name == "dsp_loops":
         q = ctypes.c_longlong
         fns = {"dsp_agc_loop": [p, p, q,      # x, y (n,) complex64, n
@@ -227,6 +241,7 @@ def _typed(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = (
             ctypes.c_char_p if fn.endswith("string")
-            else ctypes.c_longlong if fn == "dsp_agc_scan_scratch_bytes"
+            else ctypes.c_longlong if fn in ("dsp_agc_scan_scratch_bytes",
+                                             "bp_wide_state_bytes")
             else None if fn == "pfb_track_geometry" else i)
     return lib

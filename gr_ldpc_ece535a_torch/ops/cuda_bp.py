@@ -2,7 +2,7 @@
 
 The counterpart of ``gr_ldpc_ece535a_tpu/ops/pallas_bp.py``'s
 ``pallas_decode_minsum`` / ``pallas_decode_sumproduct``, with the same
-``mode`` and ``impl`` arguments and the same errors. Three kernels for each
+``mode`` and ``impl`` arguments and the same errors. Four kernels for each
 method, built by ``ops/_build.py``:
 
   mode "exact"             csrc/bp_exact.cu   check-major, the f32 path's
@@ -10,14 +10,18 @@ method, built by ``ops/_build.py``:
   "precise"/"fast", tile   csrc/bp_wmajor.cu  w-major, 32 frames a block
   "precise"/"fast", large  csrc/bp_wmajor.cu  the same decoder, 16 frames a
                                               block, for codes up to E ~ 2000
+  "precise"/"fast", wide   csrc/bp_wide.cu    the same decoder, 2 frames a
+                                              block, tables in device
+                                              memory: column weights to 12
+                                              and any number of edges
 
-``impl`` picks among the last two as JAX picks between its Gram and split
-kernels: "gram" is the tile kernel, "split" the large-code kernel, "auto"
-the tile kernel when the code's 32-frame tile fits a block's shared memory
-and the large-code kernel otherwise. The TPU's split form bcm^T (bcm x) - x
-was a workaround for an (E, E) Gram that did not fit VMEM; here both
-kernels gather, so the two impls are one function and share one plain
-version.
+``impl`` picks among the tile and large-code kernels as JAX picks between
+its Gram and split kernels: "gram" is the tile kernel, "split" the
+large-code kernel, "auto" the first of tile, large-code and wide kernel
+that takes the code (JAX has no wide kernel: its split envelope ends where
+the large-code kernel's does). The TPU's split form bcm^T (bcm x) - x was a
+workaround for an (E, E) Gram that did not fit VMEM; here every kernel
+gathers, so the three are one function and share one plain version.
 
 Beside each kernel is a plain PyTorch version of the same function in the
 same layout and rounding order. The w-major decoders (slot e = w*M + m):
@@ -60,8 +64,10 @@ must decide each such frame as the kernel does. The wrappers run a kernel
 on a CUDA tensor and its plain version on a CPU tensor; there is no
 fallback between the two. Each launch adds one to ``LAUNCHES[kernel
 name]``. The library call is the span ``ldpc.bp.launch``; while a profiler
-records, the tile and large-code kernels add their passes into the counters
-``PASS_COUNTERS`` (``utils/profiling.py``).
+records, the tile, large-code and wide kernels add their passes into the
+counters ``PASS_COUNTERS`` (``utils/profiling.py``). A code beyond the
+exact kernels' tile takes no mode "exact", and one beyond the wide
+kernels' row and column weights no kernel: their gates raise.
 """
 
 from __future__ import annotations
@@ -83,15 +89,18 @@ __all__ = ["cuda_decode_minsum", "cuda_decode_sumproduct",
            "decode_minsum_plain", "decode_sumproduct_plain",
            "decode_minsum_exact_plain", "decode_sumproduct_exact_plain",
            "kernel_supported", "large_supported", "exact_supported",
-           "supported", "smem_bytes", "large_smem_bytes", "exact_smem_bytes",
+           "wide_supported", "supported", "smem_bytes", "large_smem_bytes",
+           "exact_smem_bytes", "wide_state_bytes", "wide_in_shared",
            "route", "tier", "phi_probe", "log_tanh_half_mirror",
            "decode_sumproduct_phi", "occupancy",
            "LAUNCHES", "KERNELS", "FRAMES_PER_BLOCK", "PASS_COUNTERS"]
 
 FRAMES_PER_BLOCK = 32          # frames of a tile or exact block
 LARGE_FRAMES_PER_BLOCK = 16    # frames of a large-code block
+WIDE_FRAMES_PER_BLOCK = 2      # frames of a wide block (bp_wide.cu kFrames)
 WR_RANGE = (2, 8)              # row weights the kernels are instantiated for
-WC_MAX = 4                     # kWcMax
+WC_MAX = 4                     # kWcMax of the tile, large-code and exact kernels
+WIDE_WC_MAX = 12               # kWcMax of the wide kernels
 SMEM_MAX = 232448              # H100: 227 KB of dynamic shared memory a block
 _PHI_CLAMP = 1e4
 # log_tanh_half's constants, as the f32 values the kernel holds
@@ -102,14 +111,15 @@ _MODES = ("exact", "precise", "fast")
 _IMPLS = ("auto", "gram", "split")
 
 # kernel name -> launches; reset with LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
-KERNELS = tuple(f"bp_{m}{k}" for k in ("", "_large", "_exact")
+KERNELS = tuple(f"bp_{m}{k}" for k in ("", "_large", "_exact", "_wide")
                 for m in ("sumproduct", "minsum"))
 LAUNCHES = dict.fromkeys(KERNELS, 0)
-# the counters (utils/profiling.py) that a tile or large-code launch adds its
+# the counters (utils/profiling.py) that a tile, large-code or wide launch adds its
 # passes into while a profiler records: each block's passes times its
 # frames, and the passes its frames ran while live (early exit), summed
 PASS_COUNTERS = ("bp.lane_passes", "bp.frame_passes")
-_ROUTE_SUFFIX = {"tile": "", "large": "_large", "exact": "_exact"}
+_ROUTE_SUFFIX = {"tile": "", "large": "_large", "exact": "_exact",
+                 "wide": "_wide"}
 
 
 def tile_bytes(E: int, N: int, Wc: int, frames: int, flags: bool = True) -> int:
@@ -141,9 +151,26 @@ def exact_smem_bytes(code: LdpcCode) -> int:
             - 4 * (t.E - t.M))
 
 
-def _weights_ok(code: LdpcCode) -> bool:
+def wide_state_bytes(code: LdpcCode) -> int:
+    """Bytes of one wide block's state (bp_wide_state_bytes): 2 frames'
+    messages, -rx, flags and int8 decisions, 16-byte aligned. Shared memory
+    where it fits a block (``wide_in_shared``), else a workspace stride."""
     t = wmajor_tables(code)
-    return WR_RANGE[0] <= t.Wr <= WR_RANGE[1] and t.Wc <= WC_MAX
+    rs = WIDE_FRAMES_PER_BLOCK + 1
+    b = 4 * (t.E * WIDE_FRAMES_PER_BLOCK + t.N * rs
+             + 2 * WIDE_FRAMES_PER_BLOCK) + t.N * rs
+    return (b + 15) // 16 * 16
+
+
+def wide_in_shared(code: LdpcCode) -> bool:
+    """Whether the wide kernels keep this code's state in shared memory (one
+    block a pair of frames), rather than in a device-memory workspace."""
+    return wide_state_bytes(code) <= SMEM_MAX
+
+
+def _weights_ok(code: LdpcCode, wc_max: int = WC_MAX) -> bool:
+    t = wmajor_tables(code)
+    return WR_RANGE[0] <= t.Wr <= WR_RANGE[1] and t.Wc <= wc_max
 
 
 def kernel_supported(code: LdpcCode) -> bool:
@@ -162,31 +189,46 @@ def exact_supported(code: LdpcCode) -> bool:
     return _weights_ok(code) and exact_smem_bytes(code) <= SMEM_MAX
 
 
+def wide_supported(code: LdpcCode) -> bool:
+    """Whether the wide kernels take this code: row weights in WR_RANGE and
+    column weights up to WIDE_WC_MAX, with any number of edges (the state
+    goes to a device-memory workspace where it does not fit a block)."""
+    return _weights_ok(code, WIDE_WC_MAX)
+
+
 def supported(code: LdpcCode, tile_only: bool = False) -> bool:
     """Whether the precise/fast kernels take this code: the tile kernels, or
-    (unless ``tile_only``) the large-code kernels. The one routing rule of
-    make_decoder and make_sweep_step: make_decoder(backend="auto") passes
-    tile_only=True, as JAX's "auto" leaves codes beyond its Gram envelope
-    to XLA; the sweep and backend "cuda" take either kernel, as
-    pallas_decode_* do."""
-    return kernel_supported(code) or (not tile_only and large_supported(code))
+    (unless ``tile_only``) the large-code or the wide kernels. The one
+    routing rule of make_decoder and make_sweep_step:
+    make_decoder(backend="auto") passes tile_only=True, as JAX's "auto"
+    leaves codes beyond its Gram envelope to XLA; the sweep and backend
+    "cuda" take any of the three, as route(code, "precise") picks."""
+    # the wide kernels take every code the large-code kernels take
+    return kernel_supported(code) or (not tile_only and wide_supported(code))
 
 
 _GATES = {"tile": (kernel_supported, smem_bytes, FRAMES_PER_BLOCK),
           "large": (large_supported, large_smem_bytes, LARGE_FRAMES_PER_BLOCK),
-          "exact": (exact_supported, exact_smem_bytes, FRAMES_PER_BLOCK)}
+          "exact": (exact_supported, exact_smem_bytes, FRAMES_PER_BLOCK),
+          "wide": (wide_supported, wide_state_bytes, WIDE_FRAMES_PER_BLOCK)}
 
 
 def _check_gate(code: LdpcCode, kind: str = "tile") -> None:
     fits, smem, frames = _GATES[kind]
     if not fits(code):
         t = wmajor_tables(code)
+        where = (f"keep a {frames}-frame tile in shared memory, {smem(code)} "
+                 f"of at most {SMEM_MAX} bytes, for row weights "
+                 f"{WR_RANGE[0]}-{WR_RANGE[1]} and column weights <= {WC_MAX}"
+                 if kind != "wide" else
+                 f"take row weights {WR_RANGE[0]}-{WR_RANGE[1]} and column "
+                 f"weights <= {WIDE_WC_MAX}, any number of edges")
         raise ValueError(
             f"code {code.name!r} has {edge_slots(code)} edge slots (row weight "
-            f"{t.Wr}, column weight {t.Wc}); the CUDA {kind} BP kernels keep "
-            f"a {frames}-frame tile in shared memory, {smem(code)} of at "
-            f"most {SMEM_MAX} bytes, for row weights "
-            f"{WR_RANGE[0]}-{WR_RANGE[1]} and column weights <= {WC_MAX}. "
+            f"{t.Wr}, column weight {t.Wc}); the CUDA {kind} BP kernels "
+            f"{where}. The wide kernels (mode 'precise' or 'fast', impl "
+            f"'auto') take row weights {WR_RANGE[0]}-{WR_RANGE[1]} and column "
+            f"weights <= {WIDE_WC_MAX} at any size. "
             f"Use make_decoder(backend='torch' or 'auto').")
 
 
@@ -210,7 +252,13 @@ def tier(code: LdpcCode, sumproduct: bool) -> int:
 
 
 def route(code: LdpcCode, mode: str = "exact", impl: str = "auto") -> str:
-    """The kernel a call takes: "exact", "tile" or "large" (pallas_bp._dispatch).
+    """The kernel a call takes: "exact", "tile", "large" or "wide"
+    (pallas_bp._dispatch, with a fourth route). In modes "precise" and
+    "fast", impl="auto" takes the tile kernel where the code's 32-frame
+    tile fits a block, else the large-code kernel where its 16-frame tile
+    does, else the wide kernel (codes beyond both tiles, column weights up
+    to 12: IEEE 802.11n's 1944-bit codes). Mode "exact" has no wide form:
+    such a code raises at the exact kernels' gate.
 
     Within the exact kernels, the code's shape picks the instance
     (``tier``): a code of at most 32 checks and 64 variables keeps each
@@ -229,7 +277,8 @@ def route(code: LdpcCode, mode: str = "exact", impl: str = "auto") -> str:
     if mode == "exact":
         return "exact"
     if impl == "auto":
-        return "tile" if kernel_supported(code) else "large"
+        return ("tile" if kernel_supported(code) else
+                "large" if large_supported(code) else "wide")
     return "tile" if impl == "gram" else "large"
 
 
@@ -272,6 +321,17 @@ def _dev_tables(code: LdpcCode, device: torch.device) -> SimpleNamespace:
         var_slots=long_(np.where(t.var_slots >= 0, t.var_slots, t.E)),
         slot_vmpos=long_(slot_vmpos),
         deg=torch.as_tensor(t.var_deg, dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_tables(code: LdpcCode, device: torch.device) -> SimpleNamespace:
+    """The wide kernels' int32 tables on ``device``: the w-major slot table,
+    each variable's slots transposed (Wc, N) with -1 pads, their counts."""
+    t = wmajor_tables(code)
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                                    device=device)
+    return SimpleNamespace(t=t, slot_var=_dev_tables(code, device).slot_var_i32,
+                           var_slots=i32(t.var_slots.T), var_deg=i32(t.var_deg))
 
 
 # ---------------------------------------------------------------------------
@@ -578,9 +638,11 @@ def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
             iterations: int, early_exit: bool, norm_offset: float = 0.0,
             norm_scale: float = 1.0, lib: ctypes.CDLL | None = None
             ) -> torch.Tensor:
-    """Launch the "tile", "large" or "exact" kernel; ``lib``, where given, is
-    a variant of the kernel's library in its place (tools/occupancy.py,
-    tools/exact_probe.py)."""
+    """Launch the "tile", "large", "exact" or "wide" kernel; ``lib``, where
+    given, is a variant of the kernel's library in its place
+    (tools/occupancy.py, tools/exact_probe.py). The wide kernels' workspace,
+    where the code's state does not fit shared memory, comes from torch's
+    allocator on the current stream (a CUDA graph's pool when captured)."""
     from ._build import load_library
 
     _check_gate(code, kind)
@@ -598,6 +660,29 @@ def _launch(kind: str, sumproduct: bool, rx: torch.Tensor, code: LdpcCode,
                     d.var_cslots_i32.data_ptr(), d.t.M, d.t.N, d.t.Wr, d.t.Wc,
                     int(iterations), stream)
             what = lib.bp_exact_error_string
+        elif kind == "wide":
+            lib = lib or load_library("bp_wide")
+            d = _wide_tables(code, rx.device)
+            work, grid = None, 0
+            if not wide_in_shared(code):
+                grid = lib.bp_wide_grid(rx.shape[0])
+                if grid <= 0:
+                    raise RuntimeError("bp_wide_grid: no CUDA device")
+                work = torch.empty((grid * wide_state_bytes(code),),
+                                   dtype=torch.uint8, device=rx.device)
+            passes = (accumulator(PASS_COUNTERS, rx.device).data_ptr()
+                      if recording() else None)
+            with span("ldpc.bp.launch", kernel=name):
+                err = lib.bp_wide_decode(
+                    int(sumproduct), rx.data_ptr(), out.data_ptr(),
+                    rx.shape[0], d.slot_var.data_ptr(), d.var_slots.data_ptr(),
+                    d.var_deg.data_ptr(), d.t.M, d.t.N, d.t.Wr, d.t.Wc,
+                    int(iterations), int(early_exit),
+                    ctypes.c_float(norm_offset), ctypes.c_float(norm_scale),
+                    int(norm_offset != 0.0), int(norm_scale != 1.0),
+                    None if work is None else work.data_ptr(), grid, stream,
+                    passes)
+            what = lib.bp_wide_error_string
         else:
             lib = lib or load_library("bp_wmajor")
             d = _dev_tables(code, rx.device)
@@ -705,7 +790,7 @@ def occupancy(code: LdpcCode, kind: str, sumproduct: bool,
     another kind or a code the kind does not take."""
     from ._build import load_library
 
-    if kind not in _GATES:
+    if kind not in ("tile", "large", "exact"):
         raise ValueError(f"unknown kernel kind {kind!r}; use tile|large|exact")
     _check_gate(code, kind)
     smem = _GATES[kind][1](code)

@@ -375,9 +375,11 @@ def make_decoder(
     "cuda" (the hand-written BP kernels, precise mode), "cuda_fast" (the
     same kernels, fast mode), or "auto" (the kernels' wrappers for min-sum
     and sum-product when the code fits the tile kernels, the plain decoders
-    otherwise, as JAX's "auto" leaves codes beyond its Gram envelope to
-    XLA). "cuda" and "cuda_fast" take any code that the tile or the
-    large-code kernels take, and raise at construction otherwise. The
+    otherwise: JAX's tile-only rule, as its "auto" leaves codes beyond its
+    Gram envelope to XLA, so "auto" never takes the large-code or the wide
+    kernels). "cuda" and "cuda_fast" take any code that the tile, the
+    large-code or the wide kernels take (row weights 2-8, column weights
+    up to 12), and raise at construction otherwise. The
     wrappers launch a kernel on a CUDA tensor and run its plain version on
     a CPU tensor; "cuda" and "cuda_fast" refuse CPU tensors.
     """
@@ -401,7 +403,7 @@ def make_decoder(
             raise ValueError(
                 f"code {code.name!r} has {edge_slots(code)} edge slots and "
                 f"row weight {int(code.H.sum(1).max())}, beyond the size gates "
-                f"of the CUDA BP kernels (tile and large-code). Use "
+                f"of the CUDA BP kernels (tile, large-code and wide). Use "
                 f"backend='torch' or 'auto'.")
     elif backend in ("cuda", "cuda_fast"):
         raise ValueError(

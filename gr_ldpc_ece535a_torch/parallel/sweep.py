@@ -135,8 +135,8 @@ def _all_reduce(counts: torch.Tensor, group) -> torch.Tensor:
 
 
 def _kernel_decoder(code, method, iterations, early_exit):
-    """The kernel wrappers in mode "precise" for the BP methods (tile or
-    large-code kernel, as impl="auto" picks), or None."""
+    """The kernel wrappers in mode "precise" for the BP methods (the tile,
+    large-code or wide kernel, as impl="auto" picks), or None."""
     fn = {"minsum": cuda_decode_minsum,
           "sumproduct": cuda_decode_sumproduct}.get(method)
     if fn is None:
@@ -234,7 +234,8 @@ def make_sweep_step(
     "torch" = the plain decoders of ops/decode.py (any device); "cuda" =
     the hand-written kernels in mode "precise" (BP methods, CUDA device);
     "auto" = the kernels for the BP methods on a CUDA device when the code
-    fits one of them, the plain decoders otherwise. Without ``decode_fn``,
+    fits one of them (tile, large-code or wide: ``cuda_bp.supported``), the
+    plain decoders otherwise. Without ``decode_fn``,
     a step on a CUDA device replays CUDA graphs (see the module's notes);
     ``decode`` stays the eager decoder.
     """

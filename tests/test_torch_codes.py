@@ -36,8 +36,14 @@ def _assert_same_code(got, want):
 
 
 def test_the_registries_list_the_same_codes():
-    assert pcodes.list_codes() == NAMES
-    assert port.list_codes() == NAMES
+    """The port lists every code of the JAX registry (each equal field by
+    field, below), then the quasi-cyclic codes of published standards,
+    which the JAX registry does not hold: exactly its prototype table."""
+    from gr_ldpc_ece535a_torch.codes._qc_data import QC_DATA
+
+    assert pcodes.list_codes() == NAMES + sorted(QC_DATA)
+    assert port.list_codes() == pcodes.list_codes()
+    assert not set(QC_DATA) & set(NAMES)
     for fn in ("LdpcCode", "get_code", "list_codes", "make_ldpc",
                "get_sim_dsource"):
         assert getattr(port, fn) is getattr(pcodes, fn)

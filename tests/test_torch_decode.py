@@ -172,12 +172,18 @@ def test_make_decoder_rejects_unknowns():
 
 
 def test_make_decoder_size_gate():
-    """Codes beyond the kernels' shared-memory plan: "cuda" fails at
-    construction naming the edge slots, "auto" keeps the plain decoders."""
+    """Codes beyond the tile: "cuda" takes them through the large-code or
+    wide kernels and fails at construction, naming the edge slots, only
+    beyond the wide kernels' row and column weights; "auto" keeps them on
+    the plain decoders."""
     huge = LdpcCode.from_h(make_ldpc(512, 1024, seed=1), name="gen_512_1024")
     assert not cuda_bp.kernel_supported(huge)
+    assert ops.make_decoder(huge, 0, 2, backend="cuda").__wrapped__.func \
+        is cuda_bp.cuda_decode_minsum
+    heavy = LdpcCode.from_h(make_ldpc(16, 64, seed=1), name="gen_16_64")
+    assert int(heavy.H.sum(1).max()) > cuda_bp.WR_RANGE[1]
     with pytest.raises(ValueError, match="edge slots"):
-        ops.make_decoder(huge, 0, 2, backend="cuda")
+        ops.make_decoder(heavy, 0, 2, backend="cuda")
     dec = ops.make_decoder(huge, 0, 2, backend="auto")
     assert dec.func is ops.decode_minsum
     assert dec(torch.zeros((2, huge.N))).shape == (2, huge.N)

@@ -118,7 +118,8 @@ def test_size_gates_of_the_generated_codes():
     assert cuda_bp.large_smem_bytes(_gen(256, 512)) == 154240
     assert cuda_bp.large_smem_bytes(_gen(320, 640)) == 192768
     huge = _gen(512, 1024)
-    assert not cuda_bp.supported(huge) and not pallas_split_supported(huge)
+    assert not cuda_bp.large_supported(huge) and not pallas_split_supported(huge)
+    assert cuda_bp.supported(huge) and cuda_bp.route(huge, "precise") == "wide"
     with pytest.raises(ValueError, match="edge slots"):
         cuda_bp._check_gate(huge, "large")
 
@@ -171,8 +172,9 @@ def test_tables_from_jax_split_rejects_inconsistent_arrays():
 
 def test_make_decoder_routes_large_codes():
     """The analogue of test_pallas_size_gate_large_codes: "cuda" takes a
-    code of either kernel and fails at construction beyond both; "auto"
-    keeps codes beyond the tile on the plain decoders."""
+    code of the tile, large-code or wide kernels and fails at construction
+    beyond all three; "auto" keeps codes beyond the tile on the plain
+    decoders."""
     big = _gen(256, 512)
     dec = make_decoder(big, 0, 2, backend="cuda")
     assert dec.__wrapped__.func is cuda_bp.cuda_decode_minsum
@@ -184,24 +186,31 @@ def test_make_decoder_routes_large_codes():
     assert auto(torch.zeros((4, big.N))).shape == (4, big.N)
     small = make_decoder(get_code("block_32_64"), 1, 2, backend="auto")
     assert small.func is cuda_bp.cuda_decode_sumproduct
-    for code in (_gen(512, 1024),                         # past the memory plan
-                 LdpcCode.from_h(make_ldpc(16, 32, col_weight=5, seed=1),
-                                 name="gen_wc5")):        # Wr > 8, Wc > 4
-        for backend in ("cuda", "cuda_fast"):
-            with pytest.raises(ValueError, match="edge slots"):
-                make_decoder(code, 1, 2, backend=backend)
+    huge = _gen(512, 1024)                  # past the tiles: the wide kernels
+    for backend in ("cuda", "cuda_fast"):
+        dec = make_decoder(huge, 1, 2, backend=backend)
+        assert dec.__wrapped__.func is cuda_bp.cuda_decode_sumproduct
+        assert cuda_bp.route(huge, dec.__wrapped__.keywords["mode"]) == "wide"
+    assert make_decoder(huge, 1, 2, backend="auto").func is decode_sumproduct
+    wc5 = LdpcCode.from_h(make_ldpc(16, 32, col_weight=5, seed=1),
+                          name="gen_wc5")             # Wr > 8, Wc > 4
+    for backend in ("cuda", "cuda_fast"):
+        with pytest.raises(ValueError, match="edge slots"):
+            make_decoder(wc5, 1, 2, backend=backend)
 
 
 @pytest.mark.parametrize("M, N", [(32, 64), (192, 384), (256, 512),
                                   (512, 1024)])
 def test_one_routing_rule_for_decoder_and_sweep(M, N):
     """make_decoder(backend="auto") takes the kernels where the tile fits,
-    the sweep step where either kernel fits: both through
-    cuda_bp.supported, whose tile_only flag is the only difference."""
+    the sweep step where any kernel fits (tile, large-code or wide): both
+    through cuda_bp.supported, whose tile_only flag is the only
+    difference."""
     code = _gen(M, N)
     tile, either = cuda_bp.supported(code, True), cuda_bp.supported(code)
     assert tile == cuda_bp.kernel_supported(code)
-    assert either == (tile or cuda_bp.large_supported(code))
+    assert either == (tile or cuda_bp.large_supported(code)
+                      or cuda_bp.wide_supported(code))
     assert (make_decoder(code, 0, 2, backend="auto").func
             is (cuda_bp.cuda_decode_minsum if tile else decode_minsum))
     step = make_sweep_step(code, "cuda", method="minsum", iterations=2)
